@@ -1,32 +1,63 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 1. Builds the Hopper kernels from `src/repro_torch/kernels/csrc` with
-   nvcc (one process per source, all at once) and prints the build time.
+   nvcc (one process per source, all at once) and prints the build time
+   and each source's registers and spills.
 2. Holds every kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it: `edge_rounds` (K1) on sw_1000's
-   padded tiles and on random DAG tiles, `edge_rounds_bucketed` (K2) on
-   ba_10000's degree buckets (also against K1 on the same problem), and
-   `simplex_project` (K3) on both scenarios' data and result rows.  K1
-   and K2 must agree bit for bit, K3 to atol 1e-5 with every row summing
-   to 1 or all zero.  Prints the times of each.
-3. Drives the main path, Algorithm 1 on the sparse engine for 20
-   iterations: sw_1000 padded (K1 + K3) and ba_10000 bucketed (K2 + K3).
-   The launch counts must be 2 + 5·n and 2·n for the n iterations
-   executed, every cost finite and non-increasing, and the accepted
-   costs equal to the JAX reference's golden trajectory
-   (`src/repro_torch/data/reference_costs.json`) to rtol 2e-4.
-4. Prints one `kernels` JSON line and, last, the device line.
+   the shapes its path gives it: `edge_rounds` (K1) on sw_1000's padded
+   tiles and on random DAG tiles, `edge_rounds_bucketed` (K2) on
+   ba_10000's degree buckets (also against K1 on the same problem),
+   `simplex_project` (K3) on both scenarios' data and result rows, both
+   bit for bit (K1, K2) or to atol 1e-5 with every row summing to 1 or
+   all zero (K3); `flash_attention` (K4) on Qwen3-0.6B's prefill,
+   q [1, 16, L, 128] against k, v [1, 8, L, 128], causal, L in {17, 128,
+   333, 512}, and `decode_attention` (K5) on its decode, q [8, 8, 2, 128]
+   against [8, 1024, 8, 128] caches with ragged lengths from 1 to 1024,
+   both in float32 (rtol = atol = 2e-4) and bfloat16 (2e-2).  Prints the
+   times of each, and for K4 and K5 that of PyTorch's
+   scaled_dot_product_attention on the same inputs as a yardstick; K4
+   and K5, whose calls are shorter than their host-side launch, are
+   timed by the profiler's device time (CUDA events around the run are
+   printed beside it), the others by CUDA events.
+3. Drives the sparse main path, Algorithm 1 for 20 iterations: sw_1000
+   padded (K1 + K3) and ba_10000 bucketed (K2 + K3).  The launch counts
+   must be 2 + 5·n and 2·n for the n iterations executed, every cost
+   finite and non-increasing, and the accepted costs equal to the JAX
+   reference's golden trajectory (`src/repro_torch/data/
+   reference_costs.json`) to rtol 2e-4.
+4. Serves Qwen3-0.6B at full width (28 layers, random weights from
+   SERVE_SEED) through `ServingEngine`: 12 requests on 8 slots, max_len
+   1024, 32 new tokens.  In float32 (TF32 off) the tokens must equal the
+   JAX engine's (`src/repro_torch/data/reference_serve.json`) and the
+   logits at its top-5 indices hold to rtol 1e-3; a token may differ
+   only where the stored top-2 margin is under that tolerance, and the
+   request's comparison stops there.  In bfloat16 the same requests run
+   through the kernels, timed: 28 K4 launches per prefill and 28 K5
+   launches per decode step, every request done with the output length
+   its budget and EOS dictate; prints prefill ms per request, decode ms
+   per step, tokens/s and peak memory.  Then, with every logits row
+   kept, they run through the kernels again (the same tokens), with the
+   plain attention forced (`attn_impl="ref"`), and with the plain
+   attention taking the keys in reverse order (the witness: the same
+   function, another float32 summation order).  At the prefill and at
+   each decode step until the tokens part, the kernels' logits may be
+   no further from the plain run's than 1.5 times the witness's, in max
+   abs and in relative L2; whether they are within 2e-2 is printed.
+5. Prints one `kernels` JSON line and, last, the device line.
 
-With `--profile` it also traces one more 20-iteration run of each path
-with torch.profiler and prints the device time by kernel and the
-device's busy share (not part of the checks above).
+With `--profile` it also traces one more 20-iteration run of each sparse
+path, and one bfloat16 decode of the serving requests, with
+torch.profiler and prints the device time by kernel and the device's
+busy share (not part of the checks above).
 
 Exits non-zero on any failure, and when no CUDA device is present.
 Every earlier line is a JSON record, except the nvidia-smi line.
 """
+import contextlib
+import gc
 import json
 import math
 import os
@@ -41,6 +72,14 @@ PATHS = (("sw_1000", False), ("ba_10000", True))   # (scenario, bucketed)
 # tensor cores; the card's power limit is printed beside them
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+# the serving phases: Qwen3-0.6B at full width, the requests and the
+# reference tokens and logits of src/repro_torch/data/reference_serve.json
+SERVE_ARCH = "qwen3-0.6b"
+SERVE_SEED = 0
+SERVE_REQUESTS = 12
+SERVE_CONFIG = {"max_slots": 8, "max_len": 1024, "max_new_tokens": 32,
+                "eos_id": 1}
 
 
 def emit(record: dict) -> None:
@@ -52,27 +91,46 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def time_ms(torch, fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` calls, CUDA events around each
-    call and a synchronize after it (one warm-up call first)."""
+    """Mean device time of `fn` over `reps` back-to-back calls, one pair
+    of CUDA events around the run (one warm-up call first), so the host's
+    launch overhead hides behind the queued work wherever it can."""
     fn()
     torch.cuda.synchronize()
-    total = 0.0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Device time of `fn` per call: the kernels (and copies) it launches,
+    summed by torch.profiler over `reps` calls (one warm-up call
+    first).  Unlike CUDA events around back-to-back calls, this leaves
+    out the host's launch time when a call's kernels are shorter than
+    it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")
+                and e.key != "Activity Buffer Request")
+    return total / 1e3 / reps
 
 
 def substochastic(torch, gen, mask, S, scale):
@@ -111,11 +169,10 @@ def main() -> int:
     # ------------------------------------------------------------ build
     t0 = time.perf_counter()
     reports = _build.build_all()
-    ptxas = {name: [ln.strip() for ln in out.splitlines()
-                    if "registers" in ln or "spill" in ln][:4]
-             for name, out in reports.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas})
+          "nvcc_flags": " ".join(_build.NVCC_FLAGS),
+          "ptxas": {name: ptxas_summary(out)
+                    for name, out in reports.items()}})
 
     # -------------------------------------------------------- scenarios
     nets, nbrs, bks = {}, {}, {}
@@ -284,6 +341,9 @@ def main() -> int:
         k3_case(f"{name} data rows", R, D + 1, main=(name == "ba_10000"))
         k3_case(f"{name} result rows", R, D)
 
+    # ------------------------------------- K4 flash / K5 decode attention
+    attention_kernel_checks(torch, emit_kernel=headline)
+
     # -------------------------------------------------------- main path
     with open(os.path.join(src, "repro_torch", "data",
                            "reference_costs.json")) as f:
@@ -304,8 +364,9 @@ def main() -> int:
         costs = hist["costs"]
         n_exec = len(costs) - 1 + hist["n_rejected"]
         rounds_kernel = "edge_rounds_bucketed" if bucketed else "edge_rounds"
-        want = {"edge_rounds": 0, "edge_rounds_bucketed": 0,
-                rounds_kernel: 2 + 5 * n_exec, "simplex_project": 2 * n_exec}
+        want = {k: 0 for k in counts}
+        want.update({rounds_kernel: 2 + 5 * n_exec,
+                     "simplex_project": 2 * n_exec})
         require(counts == want, f"{name}: launches {counts} != {want}")
         require(all(map(math.isfinite, costs)), f"{name}: a cost is not "
                 "finite")
@@ -320,16 +381,19 @@ def main() -> int:
         rel = max(abs(a - b) / abs(b) for a, b in zip(costs, ref_costs))
         require(rel <= 2e-4, f"{name}: costs differ from the reference by "
                 f"rtol {rel}")
-        for k, v in counts.items():
-            path_launches[k] = path_launches.get(k, 0) + v
+        for k in ("edge_rounds", "edge_rounds_bucketed", "simplex_project"):
+            path_launches[k] = path_launches.get(k, 0) + counts[k]
         emit({"phase": "main_path", "scenario": name, "bucketed": bucketed,
               "iterations": n_exec, "rejected": hist["n_rejected"],
               "launches": counts, "seconds": seconds,
               "ms_per_iteration": seconds * 1e3 / n_exec,
               "first_cost": costs[0], "final_cost": costs[-1],
               "max_rel_err_vs_reference": rel})
+    # ------------------------------------------------ serving Qwen3-0.6B
+    serve_counts, serve_bf16 = serve_checks(torch, src)
+    path_launches.update(serve_counts)
     for k, v in path_launches.items():
-        require(v > 0, f"kernel {k} was never launched on the main path")
+        require(v > 0, f"kernel {k} was never launched on its path")
 
     require("jax" not in sys.modules, "jax was imported")
     sources = {"edge_rounds": ("src/repro_torch/kernels/csrc/edge_rounds.cu",
@@ -339,17 +403,25 @@ def main() -> int:
                    "src/repro/kernels/edge_rounds.py:173"),
                "simplex_project": (
                    "src/repro_torch/kernels/csrc/simplex_project.cu",
-                   "src/repro/kernels/simplex_project.py:76")}
+                   "src/repro/kernels/simplex_project.py:76"),
+               "flash_attention": (
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:68"),
+               "decode_attention": (
+                   "src/repro_torch/kernels/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention.py:62")}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k][0],
          "replaces": sources[k][1], "launches": path_launches[k],
          "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
          "plain_ms": results[k]["plain_ms"],
          "bound_ms": results[k]["bound_ms"],
-         "bound_by": results[k]["bound_by"], "library_ms": None}
+         "bound_by": results[k]["bound_by"],
+         "library_ms": results[k].get("library_ms")}
         for k in sources]})
     if "--profile" in sys.argv[1:]:
         profile_paths(torch, core, nets, nbrs, bks)
+        profile_decode(torch, *serve_bf16)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -403,6 +475,462 @@ def bisection_halvings(torch, ref, phi, delta, M, perm, n_iter=60):
         if not bool(live.any()):
             break
     return float(total)
+
+
+def ptxas_summary(report: str) -> dict:
+    """Most registers of any kernel of one source, and its spill lines."""
+    regs = [int(w) for ln in report.splitlines() if "registers" in ln
+            for w, nxt in zip(ln.split(), ln.split()[1:])
+            if nxt.startswith("registers") and w.isdigit()]
+    spills = [ln.strip() for ln in report.splitlines()
+              if "spill" in ln and not ln.strip().startswith(
+                  "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                  "spill loads")]
+    return {"kernels": len(regs), "max_registers": max(regs, default=0),
+            "spills": spills[:8]}
+
+
+def allclose(torch, got, want, tol: float):
+    """(max abs error, whether |got - want| <= tol + tol·|want| holds)."""
+    d = (got.float() - want.float()).abs()
+    return float(d.max()), bool((d <= tol + tol * want.float().abs()).all())
+
+
+def attention_kernel_checks(torch, emit_kernel):
+    """K4 and K5 against their plain versions at the serving shapes, in
+    float32 and bfloat16, with PyTorch's SDPA timed on the same inputs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+    peak = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
+
+    def randn(*shape, dt):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    B, H, KV, hd = 1, 16, 8, 128
+    for dt in (torch.float32, torch.bfloat16):
+        for L in (17, 128, 333, 512):
+            # the model's [B, L, heads, hd] activations, transposed views
+            q = randn(B, L, H, hd, dt=dt).transpose(1, 2)
+            k = randn(B, L, KV, hd, dt=dt).transpose(1, 2)
+            v = randn(B, L, KV, hd, dt=dt).transpose(1, 2)
+            out = flash_attention_cuda(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, causal=True)
+            err, ok = allclose(torch, out, want, tol[dt])
+            require(ok, f"K4 L={L} {dt}: max abs err {err} beyond {tol[dt]}")
+            lib_err = allclose(torch, sdpa(q, k, v, is_causal=True,
+                                           enable_gqa=True), want, tol[dt])[0]
+            calls = (lambda: flash_attention_cuda(q, k, v, True),
+                     lambda: ref.flash_attention_ref(q, k, v, True),
+                     lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+            ms, plain, lib_ms = (device_ms(torch, fn, 20) for fn in calls)
+            ev_ms, ev_plain, ev_lib = (time_ms(torch, fn, 20)
+                                       for fn in calls)
+            n_bytes = (2 * B * H + 2 * B * KV) * L * hd * q.element_size()
+            n_ops = 4.0 * B * H * hd * L * (L + 1) / 2
+            bms, by = bound_ms(n_bytes, n_ops, peak[dt])
+            emit({"phase": "kernel", "kernel": "flash_attention",
+                  "case": f"prefill L={L} causal", "dtype": str(dt),
+                  "q": [B, H, L, hd], "kv": [B, KV, L, hd],
+                  "max_abs_err": err, "tol": tol[dt], "ms": ms,
+                  "plain_ms": plain, "sdpa_ms": lib_ms,
+                  "event_ms": [ev_ms, ev_plain, ev_lib],
+                  "sdpa_max_abs_err": lib_err, "bound_ms": bms,
+                  "bound_by": by})
+            emit_kernel("flash_attention", max_abs_err=err,
+                        main=(L == 512 and dt == torch.bfloat16), ms=ms,
+                        plain_ms=plain, bound_ms=bms, bound_by=by,
+                        library_ms=lib_ms)
+
+    # the other head dims and the non-causal form (not on the path): the
+    # tensor-core kernel at hd 64, the CUDA-core one for bf16 at hd 80
+    for L, hd_x, causal in ((100, 64, False), (77, 80, True)):
+        q = randn(1, 4, L, hd_x, dt=torch.bfloat16)
+        k = randn(1, 2, L, hd_x, dt=torch.bfloat16)
+        v = randn(1, 2, L, hd_x, dt=torch.bfloat16)
+        out = flash_attention_cuda(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err, ok = allclose(torch, out, ref.flash_attention_ref(
+            q, k, v, causal=causal), 2e-2)
+        require(ok, f"K4 L={L} hd={hd_x}: max abs err {err} beyond 2e-2")
+        emit({"phase": "kernel", "kernel": "flash_attention",
+              "case": f"L={L} hd={hd_x} causal={causal}",
+              "dtype": "torch.bfloat16", "max_abs_err": err})
+        emit_kernel("flash_attention", max_abs_err=err)
+
+    B, KV, G, S = 8, 8, 2, 1024
+    lengths = torch.tensor([1, 1024, 17, 512, 333, 1000, 64, 777],
+                           dtype=torch.int32, device="cuda")
+    n_pos = int(lengths.sum())
+    mask = (torch.arange(S, device="cuda")[None]
+            < lengths[:, None])[:, None, None, :]
+    for dt in (torch.float32, torch.bfloat16):
+        q = randn(B, KV, G, hd, dt=dt)
+        kc, vc = randn(B, S, KV, hd, dt=dt), randn(B, S, KV, hd, dt=dt)
+        out = decode_attention_cuda(q, kc, vc, lengths)
+        torch.cuda.synchronize()
+        want = ref.decode_attention_ref(q, kc, vc, lengths)
+        err, ok = allclose(torch, out, want, tol[dt])
+        require(ok, f"K5 {dt}: max abs err {err} beyond {tol[dt]}")
+        qs = q.reshape(B, KV * G, 1, hd)
+        ks, vs = kc.transpose(1, 2), vc.transpose(1, 2)
+
+        def lib():
+            return sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+        lib_err = allclose(torch, lib().reshape(B, KV, G, hd), want,
+                           tol[dt])[0]
+        calls = (lambda: decode_attention_cuda(q, kc, vc, lengths),
+                 lambda: ref.decode_attention_ref(q, kc, vc, lengths), lib)
+        ms, plain, lib_ms = (device_ms(torch, fn, 20) for fn in calls)
+        ev_ms, ev_plain, ev_lib = (time_ms(torch, fn, 20) for fn in calls)
+        elt = q.element_size()
+        n_bytes = (2 * n_pos * KV * hd + 2 * B * KV * G * hd) * elt + 4 * B
+        n_ops = 4.0 * hd * G * KV * n_pos
+        bms, by = bound_ms(n_bytes, n_ops, peak[dt])
+        emit({"phase": "kernel", "kernel": "decode_attention",
+              "case": "decode B=8, S=1024, lengths 1..1024", "dtype": str(dt),
+              "q": [B, KV, G, hd], "cache": [B, S, KV, hd],
+              "positions": n_pos, "max_abs_err": err, "tol": tol[dt],
+              "ms": ms, "plain_ms": plain, "sdpa_ms": lib_ms,
+              "event_ms": [ev_ms, ev_plain, ev_lib],
+              "sdpa_max_abs_err": lib_err, "bound_ms": bms, "bound_by": by})
+        emit_kernel("decode_attention", max_abs_err=err,
+                    main=(dt == torch.bfloat16), ms=ms, plain_ms=plain,
+                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
+def watch_tokens(eng, on_token) -> None:
+    """Call `on_token(req, logits_row)` with the logits row behind every
+    token `eng` (a `ServingEngine`) hands a request, prefill and decode,
+    by wrapping its model's `prefill` and `decode_step` and its `admit`
+    and `step`; the engine's own code is untouched.  `del eng.admit,
+    eng.step` undoes the last two."""
+    model, last = eng.model, {}
+
+    class Watched:
+        def __getattr__(self, name):
+            return getattr(model, name)
+
+        def prefill(self, *args):
+            out = model.prefill(*args)
+            last["logits"] = out[0]
+            return out
+
+        def decode_step(self, *args):
+            out = model.decode_step(*args)
+            last["logits"] = out[0]
+            return out
+
+    eng.model = Watched()
+    admit, step = eng.admit, eng.step
+
+    def watched_admit(req):
+        did = admit(req)
+        if did:
+            on_token(req, last["logits"][0])
+        return did
+
+    def watched_step():
+        before = list(eng.active)
+        did = step()
+        if did:
+            for i, req in enumerate(before):
+                if req is not None:
+                    on_token(req, last["logits"][i])
+        return did
+
+    eng.admit, eng.step = watched_admit, watched_step
+
+
+def serve_run(torch, model, prompts, on_token=None):
+    """The serving requests through a fresh engine: (requests, stats)
+    with the launch counts of this run alone and host-clock times of
+    each admission and decode step (each ends in a synchronize);
+    `on_token` as in `watch_tokens`, called outside the timed calls."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    eng = ServingEngine(model, ServeConfig(**SERVE_CONFIG))
+    reqs = [Request(i, np.asarray(p, np.int32))
+            for i, p in enumerate(prompts)]
+    stats = {"prefill_ms": [], "decode_ms": []}
+    admit, step = eng.admit, eng.step
+
+    def timed(fn, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            did = fn(*args)
+            torch.cuda.synchronize()
+            if did:
+                stats[key].append((time.perf_counter() - t0) * 1e3)
+            return did
+        return run
+
+    eng.admit, eng.step = timed(admit, "prefill_ms"), timed(step,
+                                                            "decode_ms")
+    if on_token is not None:            # outside the timers
+        watch_tokens(eng, on_token)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    stats["seconds"] = time.perf_counter() - t0
+    del eng.admit, eng.step     # the wrappers close over the engine
+    stats["launches"] = ops.launches()
+    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    stats["tokens"] = sum(len(r.out) for r in reqs)
+    return reqs, stats
+
+
+def check_serve_run(reqs, stats, n_layers, label):
+    """Every request done with the length its budget and EOS dictate, and
+    n_layers K4 launches per prefill and K5 launches per decode step."""
+    eos, budget = SERVE_CONFIG["eos_id"], SERVE_CONFIG["max_new_tokens"]
+    for r in reqs:
+        require(r.done, f"{label}: request {r.rid} not done")
+        cap = min(budget + 1, SERVE_CONFIG["max_len"] - len(r.prompt))
+        if eos in r.out:
+            require(r.out.index(eos) == len(r.out) - 1
+                    and len(r.out) <= cap,
+                    f"{label}: request {r.rid} runs past EOS")
+        else:
+            require(len(r.out) == cap, f"{label}: request {r.rid} has "
+                    f"{len(r.out)} tokens, not {cap}")
+    counts = stats["launches"]
+    want = {"flash_attention": n_layers * len(stats["prefill_ms"]),
+            "decode_attention": n_layers * len(stats["decode_ms"])}
+    got = {k: counts[k] for k in want}
+    require(got == want, f"{label}: launches {got} != {want}")
+
+
+def serve_summary(stats) -> dict:
+    pre, dec = stats["prefill_ms"], sorted(stats["decode_ms"])
+    return {"requests": len(pre), "decode_steps": len(dec),
+            "tokens": stats["tokens"], "seconds": stats["seconds"],
+            "tokens_per_s": stats["tokens"] / stats["seconds"],
+            "prefill_ms_mean": sum(pre) / len(pre),
+            "prefill_ms": pre,
+            "decode_ms_mean": sum(dec) / len(dec),
+            "decode_ms_median": dec[len(dec) // 2],
+            "peak_memory_gb": stats["peak_gb"],
+            "launches": stats["launches"]}
+
+
+@contextlib.contextmanager
+def reversed_keys(torch):
+    """Within it the plain attention (`kernels.ref`, the `attn_impl="ref"`
+    path) takes the keys and values in reverse order: the same function
+    with its float32 sums taken in another order."""
+    from repro_torch.kernels import ref
+
+    def flash(q, k, v, causal=True):
+        S, g = q.shape[2], q.shape[1] // k.shape[1]
+        kf = k.float().flip(2).repeat_interleave(g, dim=1)
+        vf = v.float().flip(2).repeat_interleave(g, dim=1)
+        s = (q.float() @ kf.transpose(-1, -2)) * q.shape[-1] ** -0.5
+        if causal:
+            keep = torch.ones((S, S), dtype=torch.bool,
+                              device=q.device).tril().flip(-1)
+            s = torch.where(keep, s, ref.NEG_INF)
+        return ref._softmax_pv(s, vf).to(q.dtype)
+
+    def decode(q, k_cache, v_cache, lengths):
+        S, hd = k_cache.shape[1], k_cache.shape[-1]
+        kf = k_cache.float().transpose(1, 2).flip(2)
+        vf = v_cache.float().transpose(1, 2).flip(2)
+        s = (q.float() @ kf.transpose(-1, -2)) * hd ** -0.5
+        keep = (torch.arange(S, device=q.device)[None]
+                < lengths[:, None]).flip(-1)
+        s = torch.where(keep[:, None, None], s, ref.NEG_INF)
+        return ref._softmax_pv(s, vf).to(q.dtype)
+
+    saved = ref.flash_attention_ref, ref.decode_attention_ref
+    ref.flash_attention_ref, ref.decode_attention_ref = flash, decode
+    try:
+        yield
+    finally:
+        ref.flash_attention_ref, ref.decode_attention_ref = saved
+
+
+def logit_gap(run, base) -> dict:
+    """Max abs and relative L2 distance between two serving runs' logits
+    rows, (requests, {(rid, step): row}), at every step they
+    share: the prefill, then each decode step while both have handed
+    the request the same tokens."""
+    (reqs, rows), (b_reqs, b_rows) = run, base
+    worst, num, den, n = 0.0, 0.0, 0.0, 0
+    for r, b in zip(reqs, b_reqs):
+        for t in range(min(len(r.out), len(b.out))):
+            x, y = rows[(r.rid, t)], b_rows[(b.rid, t)]
+            worst = max(worst, float((x - y).abs().max()))
+            num += float(((x - y) ** 2).sum())
+            den += float((y ** 2).sum())
+            n += 1
+            if r.out[t] != b.out[t]:
+                break
+    return {"max_abs": worst, "rel_l2": math.sqrt(num / den), "rows": n}
+
+
+def serve_checks(torch, src):
+    """Phase 4: Qwen3-0.6B at full width, float32 against the JAX golden,
+    then bfloat16 through the kernels and through the plain attention.
+    Returns the K4/K5 launch counts of the bfloat16 kernel run and what
+    --profile needs."""
+    from repro_torch import configs
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import build_model, module
+    from repro_torch.models.lm import LM
+    with open(os.path.join(src, "repro_torch", "data",
+                           "reference_serve.json")) as f:
+        golden = json.load(f)
+    require(golden["arch"] == SERVE_ARCH and golden["seed"] == SERVE_SEED
+            and golden["serve"] == SERVE_CONFIG
+            and len(golden["requests"]) == SERVE_REQUESTS,
+            "reference_serve.json names another configuration")
+    cfg = configs.get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    specs = LM(cfg, device="meta").param_specs()
+    tree = module.init(specs, SERVE_SEED)
+    emit({"phase": "serve_weights", "arch": SERVE_ARCH,
+          "params": module.param_count(specs),
+          "seconds": time.perf_counter() - t0})
+    prompts = [r["prompt"] for r in golden["requests"]]
+
+    # float32, TF32 off, against the JAX engine's tokens and logits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = cfg.replace(compute_dtype=torch.float32,
+                        cache_dtype=torch.float32)
+    model = build_model(cfg32)
+    model.load_state_dict(lm_params_from_numpy(cfg32, tree, model.device))
+    gidx = {r["rid"]: r["top5_indices"] for r in golden["requests"]}
+    seen, f32_first = {}, {}
+
+    def gather(req, row):
+        t = len(req.out) - 1
+        if t == 0:
+            f32_first[req.rid] = row.float().cpu()
+        if t < len(gidx[req.rid]):
+            idx = torch.as_tensor(gidx[req.rid][t], device=row.device)
+            seen[(req.rid, t)] = row.float()[idx]
+
+    reqs, stats = serve_run(torch, model, prompts, on_token=gather)
+    check_serve_run(reqs, stats, cfg.n_layers, "float32 serve")
+    worst, diverged = 0.0, []
+    for r, g in zip(reqs, golden["requests"]):
+        for t, gtok in enumerate(g["tokens"]):
+            require(t < len(r.out), f"float32 serve: request {r.rid} ended "
+                    f"at {len(r.out)} tokens, the reference at "
+                    f"{len(g['tokens'])}")
+            want = torch.tensor(g["top5_values"][t])
+            got = seen[(r.rid, t)].cpu()
+            rel = float(((got - want).abs()
+                         / want.abs().clamp_min(1.0)).max())
+            worst = max(worst, rel)
+            require(rel <= 1e-3, f"float32 serve: request {r.rid} step {t}"
+                    f": top-5 logits off by rtol {rel}")
+            if r.out[t] != gtok:
+                margin = g["top2_margin"][t]
+                require(margin < 1e-3 * max(1.0, abs(want[0].item())),
+                        f"float32 serve: request {r.rid} step {t}: token "
+                        f"{r.out[t]} != {gtok} at top-2 margin {margin}")
+                diverged.append({"rid": r.rid, "step": t, "margin": margin})
+                break
+        else:
+            require(len(r.out) == len(g["tokens"]), f"float32 serve: "
+                    f"request {r.rid} has {len(r.out)} tokens, the "
+                    f"reference {len(g['tokens'])}")
+    emit({"phase": "serve", "dtype": "float32", "vs": "reference_serve.json",
+          "max_rel_err_top5": worst, "diverged_at_near_ties": diverged,
+          **serve_summary(stats)})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bfloat16, the production dtypes: through the kernels, timed and
+    # counted; then, each logits row kept, through the kernels again,
+    # through the plain attention, and through the plain attention with
+    # the keys in reverse order (the witness: the same function in another
+    # float32 summation order)
+    model = build_model(cfg)
+    model.load_state_dict(lm_params_from_numpy(cfg, tree, model.device))
+    del tree
+    reqs, stats = serve_run(torch, model, prompts)
+    check_serve_run(reqs, stats, cfg.n_layers, "bfloat16 serve")
+    emit({"phase": "serve", "dtype": "bfloat16", "attention": "kernels",
+          **serve_summary(stats)})
+    runs = {}
+    for name, impl, order in (
+            ("kernels", None, contextlib.nullcontext()),
+            ("plain", "ref", contextlib.nullcontext()),
+            ("witness", "ref", reversed_keys(torch))):
+        rows = {}
+
+        def keep(req, row, rows=rows):
+            rows[(req.rid, len(req.out) - 1)] = row.float().cpu()
+
+        model.attn_impl = impl
+        with order:
+            r_reqs, r_stats = serve_run(torch, model, prompts,
+                                        on_token=keep)
+        require(all(r.done for r in r_reqs), f"bfloat16 serve, {name} "
+                "attention: a request is not done")
+        require(impl is None or not any(r_stats["launches"].values()),
+                f"the {name}-attention run launched a kernel")
+        runs[name] = (r_reqs, rows)
+    model.attn_impl = None
+    require([r.out for r in runs["kernels"][0]] == [r.out for r in reqs],
+            "bfloat16 serve: two runs through the kernels differ")
+    # bfloat16 rounds at every layer, and 28 layers carry any change of
+    # float32 rounding into the logits: the kernels are held to what one
+    # such change does to the plain attention, the witness's gap
+    gaps = {name: logit_gap(runs[name], runs["plain"])
+            for name in ("kernels", "witness")}
+    from_f32 = {name: max(float((rows[(rid, 0)] - row).abs().max())
+                          for rid, row in f32_first.items())
+                for name, (_, rows) in runs.items()}
+    emit({"phase": "serve", "dtype": "bfloat16", "vs_plain": gaps,
+          "prefill_max_abs_vs_float32": from_f32,
+          "kernels_within_2e-2": gaps["kernels"]["max_abs"] <= 2e-2,
+          "same_tokens_as_plain": {name: [a.out == b.out for a, b in zip(
+              runs[name][0], runs["plain"][0])] for name in gaps}})
+    for key in ("max_abs", "rel_l2"):
+        require(gaps["kernels"][key] <= 1.5 * gaps["witness"][key],
+                f"bfloat16 serve: the kernels' logits are {key} "
+                f"{gaps['kernels'][key]} from the plain attention's, more "
+                f"than 1.5x the witness's {gaps['witness'][key]}")
+    counts = {k: stats["launches"][k]
+              for k in ("flash_attention", "decode_attention")}
+    return counts, (model, prompts)
+
+
+def profile_decode(torch, model, prompts, top=12):
+    """Device time by kernel over one traced bfloat16 serving run."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, stats = serve_run(torch, model, prompts)
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0
+            and e.key != "Activity Buffer Request"]
+    device_ms = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    wall_ms = stats["seconds"] * 1e3
+    emit({"phase": "profile", "scenario": "serve bfloat16",
+          "wall_ms": wall_ms, "device_ms": device_ms,
+          "busy_share": device_ms / wall_ms,
+          "decode_steps": len(stats["decode_ms"]),
+          "top": [{"kernel": k[:80], "ms": ms, "calls": n}
+                  for k, ms, n in rows[:top]]})
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of the CEC routing-and-offloading optimizer.
 
 `repro_torch.core` runs the paper's Algorithm 1 on the sparse edge-slot
-engine; its fixed-point recursions and QP projections go through the
-hand-written Hopper kernels of `repro_torch.kernels` for tensors on the
-card, and through their plain PyTorch versions for tensors on the CPU.
-The package imports torch, numpy and scipy only.
+engine; `repro_torch.models`, `serving` and `launch.serve` serve the
+dense LM family.  Their kernels (`repro_torch.kernels`) are hand-written
+Hopper kernels for tensors on the card and plain PyTorch versions for
+tensors on the CPU.  The package imports torch, numpy and scipy only.
 """

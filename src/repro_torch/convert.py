@@ -1,4 +1,4 @@
-"""Carry a network and an iterate across from numpy arrays and back.
+"""Carry a network, an iterate and LM weights across from numpy arrays.
 
 The port never sees another framework's types: a caller hands over the
 fields as numpy arrays (`np.asarray(...)` of whatever holds them) and
@@ -54,3 +54,55 @@ def phi_sparse_from_numpy(data, local, result, device=None) -> PhiSparse:
 def phi_sparse_to_numpy(phi: PhiSparse) -> tuple:
     """(data, local, result) as numpy arrays."""
     return tuple(t.cpu().numpy() for t in (phi.data, phi.local, phi.result))
+
+
+def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
+    """The port's `LM` weights (a state dict for `LM.load_state_dict`) on
+    `device` (None: the card) from the JAX package's `LM.param_specs()`
+    tree as numpy arrays (`models.module.init` draws one).
+
+    Layout changes, from the JAX tree to the port:
+
+    * `blocks/slot_{j}/...` leaves carry a leading `layers` axis of
+      n_layers / period groups; group g of slot j becomes layer
+      g·period + j (`layers.{i}.*`), one tensor per layer;
+    * `mixer/wq [d, H, hd]` -> `wq [d, H·hd]`, `mixer/wk`, `mixer/wv
+      [d, KV, hd]` -> `[d, KV·hd]`, `mixer/wo [H, hd, d]` -> `wo
+      [H·hd, d]` (row-major reshapes: x @ wq equals the einsum
+      "bld,dhk->blhk" flattened over (h, k));
+    * `mixer/q_norm`, `mixer/k_norm`, `ln1`, `ln2` keep their shapes, as
+      do `ffn/wg`, `ffn/wu [d, f]` and `ffn/wd [f, d]` (the `mixer/` and
+      `ffn/` levels are dropped from the names);
+    * `embed [vocab, d]`, `final_norm [d]` and, untied, `unembed
+      [d, vocab]` carry over as they are.
+
+    Tensors come back float32; `load_state_dict` casts each to the
+    dtype the model keeps it in (matrices in the compute dtype)."""
+    from .models.lm import LM
+    dev = resolve_device(device)
+    period = cfg.scan_period()
+    pattern = cfg.layer_pattern()[:period]
+    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    reshape = {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),
+               "wo": (H * hd, d)}
+    out = {"embed": _f32(tree["embed"], dev),
+           "final_norm": _f32(tree["final_norm"], dev)}
+    if "unembed" in tree:
+        out["unembed"] = _f32(tree["unembed"], dev)
+    for j in range(len(pattern)):
+        slot = tree["blocks"][f"slot_{j:02d}"]
+        flat = {"ln1": slot["ln1"], **slot["mixer"]}
+        if "ffn" in slot:
+            flat.update(ln2=slot["ln2"], **slot["ffn"])
+        for name, stacked in flat.items():
+            for g in range(stacked.shape[0]):
+                a = np.asarray(stacked[g])
+                if name in reshape:
+                    a = a.reshape(reshape[name])
+                out[f"layers.{g * period + j}.{name}"] = _f32(a, dev)
+    expected = set(LM(cfg, device="meta").state_dict())
+    if set(out) != expected:
+        raise ValueError(f"{cfg.name}: the tree does not match the model: "
+                         f"missing {sorted(expected - set(out))}, extra "
+                         f"{sorted(set(out) - expected)}")
+    return out

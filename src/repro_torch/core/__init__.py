@@ -7,7 +7,8 @@ from .network import (DENSE_V_LIMIT, CECNetwork, EdgeBuckets, Flows,
                       cost_of_carry, flows_carry_and_cost, gather_edges,
                       link_cost_sparse, mask_slots, phi_to_sparse,
                       resolve_device, scatter_edges, solve_downstream_sparse,
-                      sparse_to_phi, spt_phi_sparse, spt_result_slots)
+                      sparse_to_phi, spt_phi, spt_phi_sparse,
+                      spt_result_slots)
 from .scenarios import TABLE_II, ScenarioSpec, enforce_feasibility, make_scenario
 from .sgp import (SIGMA_DECAY, SGPConsts, RunState, accept_step,
                   blocked_sets_sparse, init_run_state, make_consts, run,
@@ -22,8 +23,8 @@ __all__ = [
     "cost_of_carry", "flows_carry_and_cost", "gather_edges",
     "link_cost_sparse", "mask_slots", "phi_to_sparse", "resolve_device",
     "scatter_edges", "solve_downstream_sparse", "sparse_to_phi",
-    "spt_phi_sparse", "spt_result_slots", "TABLE_II", "ScenarioSpec",
-    "enforce_feasibility", "make_scenario", "SIGMA_DECAY", "SGPConsts",
-    "RunState", "accept_step", "blocked_sets_sparse", "init_run_state",
-    "make_consts", "run", "run_chunk", "topologies",
+    "spt_phi", "spt_phi_sparse", "spt_result_slots", "TABLE_II",
+    "ScenarioSpec", "enforce_feasibility", "make_scenario", "SIGMA_DECAY",
+    "SGPConsts", "RunState", "accept_step", "blocked_sets_sparse",
+    "init_run_state", "make_consts", "run", "run_chunk", "topologies",
 ]

@@ -20,6 +20,9 @@ recursions ρ = b + Φ ρ (Eq. 11-12) are fixed points solved by
 `kernels.ops.edge_rounds`, over the padded [V, Dmax] tiles or, with
 `buckets=`, over degree-bucketed [Vb, Db] tiles (`build_buckets`) —
 bitwise the same result at ΣVb·Db lanes a round instead of V·Dmax.
+The dense layout `Phi` and its LU flow solve (`compute_flows(...,
+"dense")`, `spt_phi`) are the small-V oracle the scenario sampler uses
+up to DENSE_V_LIMIT nodes, as the reference does.
 
 Every tensor lives on one device; entry points that create tensors take
 `device=`, and None means the card ("cuda").
@@ -271,7 +274,8 @@ def sparse_to_phi(phi_sp: PhiSparse, nbrs: Neighbors, V: int | None = None):
 def _sparse_only(method: str) -> None:
     if method != "sparse":
         raise ValueError(f"method={method!r}: only the sparse engine is "
-                         "ported")
+                         "ported here (compute_flows also runs the dense "
+                         "one)")
 
 
 # ---------------------------------------------------------------- solves
@@ -365,10 +369,42 @@ def flows_carry_and_cost(net: CECNetwork, phi, method: str = "sparse",
     return carry, cost_of_carry(net, carry, nbrs)
 
 
+def _solve_traffic_dense(phi_nbr, inject):
+    """t = inject + Φᵀ t for each task by one batched LU solve of
+    (I - Φᵀ) t = inject: phi_nbr [S, V, V], inject [S, V]."""
+    eye = torch.eye(phi_nbr.shape[-1], dtype=phi_nbr.dtype,
+                    device=phi_nbr.device)
+    A = eye[None] - phi_nbr.transpose(-1, -2)
+    return torch.linalg.solve(A, inject[..., None])[..., 0]
+
+
+def _compute_flows_dense(net: CECNetwork, phi: Phi) -> Flows:
+    """The dense engine (the reference's small-V oracle): F and f_data /
+    f_result are [V, V] and [S, V, V]."""
+    adjf = net.adj.to(phi.data.dtype)
+    phi_d_nbr = phi.data[..., :-1] * adjf[None]
+    phi_loc = phi.data[..., -1]
+    phi_r = phi.result * adjf[None]
+    t_data = _solve_traffic_dense(phi_d_nbr, net.r)
+    g = t_data * phi_loc
+    t_result = _solve_traffic_dense(phi_r, net.a[:, None] * g)
+    f_data = t_data[..., None] * phi_d_nbr
+    f_result = t_result[..., None] * phi_r
+    F = torch.sum(f_data + f_result, dim=0)
+    G = torch.sum(net.w * g, dim=0)
+    return Flows(t_data, t_result, g, F, G, f_data, f_result)
+
+
 def compute_flows(net: CECNetwork, phi, method: str = "sparse",
                   nbrs: Neighbors | None = None,
                   buckets: NeighborBuckets | None = None) -> Flows:
-    """Forward pass of the flow model on the sparse engine (F dense)."""
+    """Forward pass of the flow model (F dense).  method="sparse" runs
+    the edge-slot engine on either φ layout; method="dense" takes a
+    dense `Phi` and solves the traffic recursions by LU."""
+    if method == "dense":
+        if not isinstance(phi, Phi):
+            raise ValueError("method='dense' needs a dense Phi")
+        return _compute_flows_dense(net, phi)
     _sparse_only(method)
     nbrs = nbrs if nbrs is not None else build_neighbors(net.adj)
     t_data, t_result, g, f_data, f_result, G = _traffic(
@@ -397,7 +433,7 @@ def _floyd_warshall(adj: np.ndarray, weight: np.ndarray):
     return dist, nxt
 
 
-def _spt_next_hops(net: CECNetwork, nbrs: Neighbors,
+def _spt_next_hops(net: CECNetwork, nbrs: Neighbors | None,
                    weight: np.ndarray | None = None) -> np.ndarray:
     """Per-task next hop toward the destination: [S, V] int64, -1 where
     there is none.  Edge weights default to the marginal link cost at
@@ -416,6 +452,7 @@ def _spt_next_hops(net: CECNetwork, nbrs: Neighbors,
     if V > DENSE_V_LIMIT:
         from scipy.sparse import csr_matrix
         from scipy.sparse.csgraph import dijkstra
+        nbrs = build_neighbors(net.adj) if nbrs is None else nbrs
         out_nbr = nbrs.out_nbr.cpu().numpy()
         out_mask = nbrs.out_mask.cpu().numpy()
         w_sp = np.maximum(weight[idx[:, None], out_nbr], 1e-12)
@@ -441,6 +478,19 @@ def _spt_next_hops(net: CECNetwork, nbrs: Neighbors,
         ok = (idx != d) & (nx >= 0)
         nx_all[s] = np.where(ok, nx, -1)
     return nx_all
+
+
+def spt_phi(net: CECNetwork, weight: np.ndarray | None = None) -> Phi:
+    """`spt_phi_sparse` in the dense layout: data [S, V, V+1] with the
+    local column one, result [S, V, V] one-hot at each next hop."""
+    V, S = net.V, net.S
+    nx_all = _spt_next_hops(net, None, weight)
+    data = torch.zeros((S, V, V + 1), device=net.device)
+    data[..., -1] = 1.0
+    result = np.zeros((S, V, V), np.float32)
+    s_idx, i_idx = np.nonzero(nx_all >= 0)
+    result[s_idx, i_idx, nx_all[s_idx, i_idx]] = 1.0
+    return Phi(data, torch.as_tensor(result, device=net.device))
 
 
 def spt_result_slots(net: CECNetwork, nbrs: Neighbors,

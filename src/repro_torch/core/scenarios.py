@@ -18,8 +18,9 @@ import torch
 
 from . import topologies
 from .costs import SAT, Cost
-from .network import (CECNetwork, PhiSparse, build_neighbors, compute_flows,
-                      resolve_device, spt_phi_sparse)
+from .network import (DENSE_V_LIMIT, CECNetwork, Phi, PhiSparse,
+                      build_neighbors, compute_flows, resolve_device,
+                      spt_phi, spt_phi_sparse)
 
 
 @dataclasses.dataclass
@@ -121,15 +122,19 @@ def make_scenario(spec: ScenarioSpec, rate_scale: float = 1.0,
 
 
 def enforce_feasibility(net: CECNetwork, margin: float = 0.75,
-                        phi0: PhiSparse | None = None) -> CECNetwork:
+                        phi0: Phi | PhiSparse | None = None) -> CECNetwork:
     """Scale queue capacities so φ⁰ keeps flows below margin·SAT·cap.
 
-    φ⁰ is evaluated on the sparse engine at every size (the reference
-    uses its dense solve up to V = 200; the two agree to float32
-    rounding)."""
-    nbrs = build_neighbors(net.adj)
-    phi0 = spt_phi_sparse(net, nbrs) if phi0 is None else phi0
-    fl = compute_flows(net, phi0, "sparse", nbrs=nbrs)
+    As in the reference, φ⁰ is measured with the dense LU solve up to
+    V = DENSE_V_LIMIT and on the sparse engine above it (a `phi0` given
+    in the edge-slot layout is always measured sparse)."""
+    if net.V > DENSE_V_LIMIT or isinstance(phi0, PhiSparse):
+        nbrs = build_neighbors(net.adj)
+        phi0 = spt_phi_sparse(net, nbrs) if phi0 is None else phi0
+        fl = compute_flows(net, phi0, "sparse", nbrs=nbrs)
+    else:
+        fl = compute_flows(net, spt_phi(net) if phi0 is None else phi0,
+                           "dense")
     limit = margin * SAT
     dev = net.device
     if net.link_cost.family == "queue":

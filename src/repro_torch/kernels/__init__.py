@@ -1,2 +1,2 @@
-"""Hopper kernels of the sparse engine, their plain PyTorch versions and
-the dispatcher (`ops`)."""
+"""Hopper kernels of the sparse engine and of LM attention, their plain
+PyTorch versions and the dispatcher (`ops`)."""

@@ -18,7 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("edge_rounds", "simplex_project")
+SOURCES = ("edge_rounds", "simplex_project", "flash_attention",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -83,6 +84,16 @@ _SIGNATURES = {
     "simplex_project": {
         "simplex_project_launch": [_INT, _PTR, _PTR, _PTR, _PTR, _PTR,
                                    _INT, _INT, _INT, _PTR],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
+                                   _INT, _INT, _INT] + [_LONG] * 12
+                                  + [_FLOAT, _INT, _PTR],
+    },
+    "decode_attention": {
+        "decode_attention_launch": [_INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
+                                    _PTR, _INT, _INT, _INT, _INT]
+                                   + [_LONG] * 12 + [_FLOAT, _PTR],
     },
 }
 

@@ -1,5 +1,9 @@
 """Dispatch between the Hopper kernels and their plain versions.
 
+K1 `edge_rounds`, K2 `edge_rounds_bucketed` and K3 `simplex_project`
+carry the sparse engine; K4 `flash_attention` and K5 `decode_attention`
+carry the LM's prefill and decode.
+
 A CUDA tensor goes to the kernel; a CPU tensor goes to the plain
 PyTorch version.  `impl="ref"` forces the plain version on any device
 (the tests and `chip_smoke.py`'s comparisons use it).  There is no
@@ -12,10 +16,13 @@ from typing import Optional
 import torch
 
 from . import ref as _ref
+from .decode_attention import decode_attention_cuda
 from .edge_rounds import edge_rounds_bucketed_cuda, edge_rounds_cuda
+from .flash_attention import flash_attention_cuda
 from .simplex_project import simplex_project_cuda
 
-KERNELS = (edge_rounds_cuda, edge_rounds_bucketed_cuda, simplex_project_cuda)
+KERNELS = (edge_rounds_cuda, edge_rounds_bucketed_cuda, simplex_project_cuda,
+           flash_attention_cuda, decode_attention_cuda)
 
 
 def reset_launches() -> None:
@@ -26,7 +33,9 @@ def reset_launches() -> None:
 def launches() -> dict:
     return {"edge_rounds": edge_rounds_cuda.launches,
             "edge_rounds_bucketed": edge_rounds_bucketed_cuda.launches,
-            "simplex_project": simplex_project_cuda.launches}
+            "simplex_project": simplex_project_cuda.launches,
+            "flash_attention": flash_attention_cuda.launches,
+            "decode_attention": decode_attention_cuda.launches}
 
 
 def _pick(impl: Optional[str], t: torch.Tensor) -> str:
@@ -113,3 +122,22 @@ def simplex_project(phi, delta, M, permitted, impl: Optional[str] = None):
     if _pick(impl, phi) == "ref":
         return _ref.simplex_project_ref(phi, delta, M, permitted)
     return simplex_project_cuda(phi, delta, M, permitted)
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    impl: Optional[str] = None):
+    """GQA attention over a whole sequence: q [B, H, S, hd], k, v
+    [B, KV, S, hd] -> [B, H, S, hd], any S (the prefill of `LM`)."""
+    if _pick(impl, q) == "ref":
+        return _ref.flash_attention_ref(q, k, v, causal=causal)
+    return flash_attention_cuda(q, k, v, causal=causal)
+
+
+def decode_attention(q, k_cache, v_cache, lengths,
+                     impl: Optional[str] = None):
+    """One-token GQA attention: q [B, KV, G, hd] against caches in the
+    engine's [B, S, KV, hd] layout, positions < lengths[b] (>= 1) valid
+    -> [B, KV, G, hd]."""
+    if _pick(impl, q) == "ref":
+        return _ref.decode_attention_ref(q, k_cache, v_cache, lengths)
+    return decode_attention_cuda(q, k_cache, v_cache, lengths)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the sparse engine's kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 These are the oracles the Hopper kernels are held against, and the path
 `kernels.ops` takes for tensors on the CPU.  They mirror the JAX
@@ -15,6 +15,12 @@ package's `kernels/ref.py` and `core/sgp.py:project_rows`:
 * `simplex_project_ref` solves the Eq. 15 QP rows by bisection on the
   simplex dual in hoisted slope-intercept form with the bracket
   fixed-point early exit.
+* `flash_attention_ref` / `decode_attention_ref` are the two attention
+  kernels' function: scores in float32, softmax probabilities kept in
+  float32 and normalised at the end, one cast of the output to the
+  input dtype, as in the Pallas kernels (the JAX package's references
+  round the probabilities to the input dtype before the product with v;
+  at float32 the two agree to rounding).
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 
 BIG = 1e12
 SNAP_TOL = 1e-12
+NEG_INF = -1e30
 
 
 def fold_reduce(msg: torch.Tensor, reduce: str = "sum") -> torch.Tensor:
@@ -164,3 +171,37 @@ def simplex_project_ref(phi, delta, M, permitted, n_iter: int = 60):
         d.argmin(-1), d.shape[-1]).to(phi.dtype)
     v = torch.where(s > 0.0, v / torch.clamp_min(s, 1e-30), onehot)
     return torch.where(permitted.any(-1, keepdim=True), v, 0.0)
+
+
+def _softmax_pv(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """exp(s - rowmax) @ v / rowsum, all in float32."""
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return (p @ v) / torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
+    """q [B, H, S, hd]; k, v [B, KV, S, hd] -> [B, H, S, hd] in q's dtype
+    (KV head of query head h: h // (H / KV))."""
+    B, H, S, hd = q.shape
+    g = H // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    s = (q.float() @ kf.transpose(-1, -2)) * hd ** -0.5
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, NEG_INF)
+    return _softmax_pv(s, vf).to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, lengths) -> torch.Tensor:
+    """q [B, KV, G, hd]; caches [B, S, KV, hd] (the engine's layout);
+    lengths [B] -> [B, KV, G, hd] in q's dtype.  Positions >= lengths[b]
+    are masked with NEG_INF."""
+    B, S, KV, hd = k_cache.shape
+    kf = k_cache.float().transpose(1, 2)                 # [B, KV, S, hd]
+    vf = v_cache.float().transpose(1, 2)
+    s = (q.float() @ kf.transpose(-1, -2)) * hd ** -0.5  # [B, KV, G, S]
+    valid = (torch.arange(S, device=q.device)[None]
+             < lengths.to(q.device)[:, None])
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    return _softmax_pv(s, vf).to(q.dtype)

@@ -1,0 +1,86 @@
+"""Serving driver of the port: batched decode of random prompts through
+`ServingEngine` on a model built from the registry.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --reduced --requests 12 --max-new 16 --device cpu
+
+This is the engine half of the JAX package's `repro.launch.serve`; the
+SGP request router that opens that script (the paper's optimizer
+planning the pod-level dispatch) comes with ROADMAP item P11, the port
+of `serving/router.py`.  Weights are random, drawn with numpy from
+`--seed` (`models.module.init`).  Without `--device` the model runs on
+the card; the CPU only when asked for.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.models import build_model, module
+from repro_torch.serving import Request, ServeConfig, ServingEngine
+
+
+def make_requests(n: int, vocab: int, seed: int, lo: int = 4,
+                  hi: int = 12) -> list:
+    """n requests with prompt lengths drawn from [lo, hi) and tokens
+    from [2, vocab), both from RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    return [Request(rid=i, prompt=rng.randint(2, vocab,
+                                              size=rng.randint(lo, hi))
+                    .astype(np.int32))
+            for i in range(n)]
+
+
+def load_model(cfg, seed: int, device=None, attn_impl=None):
+    """The port's LM on `device` with weights drawn from `seed`."""
+    model = build_model(cfg, device=device, attn_impl=attn_impl)
+    tree = module.init(model.param_specs(), seed)
+    model.load_state_dict(lm_params_from_numpy(cfg, tree, model.device))
+    return model
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b",
+                    choices=list(configs.ARCH_IDS))
+    size = ap.add_mutually_exclusive_group()
+    size.add_argument("--reduced", dest="reduced", action="store_true",
+                      default=True)
+    size.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+
+    cfg = (configs.get_reduced(args.arch) if args.reduced
+           else configs.get_config(args.arch))
+    model = load_model(cfg, args.seed, args.device)
+    engine = ServingEngine(model, ServeConfig(max_slots=args.slots,
+                                              max_len=args.max_len,
+                                              max_new_tokens=args.max_new))
+    reqs = make_requests(args.requests, cfg.vocab, args.seed)
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(r.out) for r in reqs)
+    print(f"served {len(reqs)} requests, {n_tok} tokens in {dt:.2f}s "
+          f"({n_tok / max(dt, 1e-9):.1f} tok/s on {model.device})",
+          flush=True)
+    for r in reqs[:3]:
+        print(f"  req {r.rid}: prompt[{len(r.prompt)}] -> {r.out[:8]}...")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,125 @@
+"""Batched serving engine: continuous-batching decode over a fixed-slot
+KV cache, prefill admission and per-request completion (PyTorch port of
+the JAX package's `serving/engine.py`, with its semantics):
+
+* `max_slots` sequences share the cache [.., slots, max_len, ..]; a
+  request is admitted into a free slot by `model.prefill` on a batch of
+  1 over that slot's lane of the cache;
+* `Request.out` holds the token prefill emits plus at most
+  `max_new_tokens` decode tokens; an EOS from prefill ends the request
+  at admission and its slot is never occupied;
+* every decode step runs in lock-step over ALL `max_slots` lanes,
+  inactive ones included, and a request ends on EOS, on its decode
+  budget, or when its position reaches `max_len - 1`;
+* tokens are the greedy argmax, ties to the first index.
+
+The model contract: `init_cache_specs(batch, max_len)`, `prefill(cache,
+tokens [1, L]) -> (logits [1, V], cache)` and `decode_step(cache,
+tokens [B, 1], pos [B]) -> (logits [B, V], cache)`, where prefill and
+decode write the cache tensors they are given in place.  Admission
+hands prefill views of the slot's lane, so it writes back exactly that
+lane.  The JAX engine's per-slot lanes of a mutable model state matter
+only for models with such state (MoE load EMAs); they come with the
+MoE slice (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..models import module
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_slots: int = 8
+    max_len: int = 512
+    eos_id: int = 1
+    # decode-step budget per request: `Request.out` carries the
+    # prefill-emitted first token plus at most max_new_tokens decode
+    # tokens
+    max_new_tokens: int = 64
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # [L] int
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServingEngine:
+    def __init__(self, model, cfg: ServeConfig):
+        self.model = model
+        self.cfg = cfg
+        self.device = model.device
+        self.cache = module.zeros(
+            model.init_cache_specs(cfg.max_slots, cfg.max_len), self.device)
+        self.pos = np.zeros((cfg.max_slots,), np.int32)
+        self.active: List[Optional[Request]] = [None] * cfg.max_slots
+        self.last_tok = np.zeros((cfg.max_slots,), np.int64)
+
+    # ------------------------------------------------------------------
+    def _free_slot(self) -> Optional[int]:
+        for i, r in enumerate(self.active):
+            if r is None:
+                return i
+        return None
+
+    def admit(self, req: Request) -> bool:
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        lane = module.tree_map(lambda c: c[:, slot:slot + 1], self.cache)
+        prompt = torch.as_tensor(np.asarray(req.prompt, np.int64)[None],
+                                 device=self.device)
+        logits, _ = self.model.prefill(lane, prompt)
+        tok = int(torch.argmax(logits[0]))
+        req.out.append(tok)
+        if tok == self.cfg.eos_id or self.cfg.max_new_tokens <= 0:
+            req.done = True
+            return True
+        self.active[slot] = req
+        self.pos[slot] = len(req.prompt)
+        self.last_tok[slot] = tok
+        return True
+
+    def step(self) -> bool:
+        """One lock-step batched decode over every slot; False (and no
+        decode) when no slot is active."""
+        if not any(r is not None for r in self.active):
+            return False
+        toks = torch.as_tensor(self.last_tok[:, None], device=self.device)
+        pos = torch.as_tensor(self.pos, device=self.device)
+        logits, self.cache = self.model.decode_step(self.cache, toks, pos)
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        for i, req in enumerate(self.active):
+            if req is None:
+                continue
+            self.pos[i] += 1
+            tok = int(nxt[i])
+            req.out.append(tok)
+            self.last_tok[i] = tok
+            # out[0] is the prefill-emitted token: only decode-emitted
+            # tokens count against the max_new_tokens budget
+            if (tok == self.cfg.eos_id
+                    or len(req.out) - 1 >= self.cfg.max_new_tokens
+                    or self.pos[i] >= self.cfg.max_len - 1):
+                req.done = True
+                self.active[i] = None
+        return True
+
+    def run(self, requests: List[Request], max_steps: int = 10_000):
+        """Admit + decode until all requests complete."""
+        pending = list(requests)
+        steps = 0
+        while (pending or any(self.active)) and steps < max_steps:
+            while pending and self._free_slot() is not None:
+                self.admit(pending.pop(0))
+            self.step()
+            steps += 1
+        return requests

@@ -361,6 +361,57 @@ def test_simplex_project_matches_oracle(R, K):
     assert (got.numpy()[~perm] == 0).all()
 
 
+def _fused_left_to_right_qp(phi, delta, M, perm, n_iter=60):
+    """The QP rows with XLA's CPU arithmetic for K <= 32: q - λw as one
+    fused multiply-add (emulated through float64, where the product of
+    two float32 is exact) and every row sum taken left to right."""
+    q, w, d, lo, hi = ref.dual_setup(*(torch.from_numpy(a) for a in
+                                       (phi, delta, M, perm)))
+
+    def v_of(lam):
+        return torch.clamp_min((q.double() - lam.double() * w.double())
+                               .float(), 0.0)
+
+    def row_sum(x):
+        acc = torch.zeros_like(x[:, :1])
+        for j in range(x.shape[1]):
+            acc = acc + x[:, j:j + 1]
+        return acc
+
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        up = row_sum(v_of(mid)) > 1.0
+        lo2, hi2 = torch.where(up, mid, lo), torch.where(up, hi, mid)
+        if torch.equal(lo2, lo) and torch.equal(hi2, hi):
+            break
+        lo, hi = lo2, hi2
+    v = v_of(0.5 * (lo + hi))
+    v = torch.where(v > 1e-12, v, 0.0)
+    s = row_sum(v)
+    live = torch.from_numpy(perm).any(-1, keepdim=True)
+    return torch.where(live & (s > 0), v / torch.clamp_min(s, 1e-30), 0.0)
+
+
+@pytest.mark.parametrize("K", [10, 15])
+def test_reference_qp_arithmetic_is_fused_left_to_right(K):
+    """The JAX package's QP on the CPU sums each row of K <= 32 left to
+    right and fuses q - λw into one rounding: that arithmetic reproduces
+    it bit for bit, on rows scaled like the lightly loaded sw_linear rows
+    (w = 1/2M up to 10, where one ulp of λ shows).  The port keeps
+    torch's order (ROADMAP §3 says why)."""
+    phi, delta, M, perm = _qp_rows(3000, K, 40 + K)
+    M = (M * 0 + np.random.default_rng(K).random(M.shape) * 0.5
+         + 0.05).astype(np.float32)
+    perm[:, 0] = True                         # no blocked rows here
+    want = np.asarray(j_project_rows(*(jnp.asarray(a) for a in
+                                       (phi, delta, M, perm))))
+    np.testing.assert_array_equal(
+        _fused_left_to_right_qp(phi, delta, M, perm).numpy(), want)
+    got = ops.simplex_project(*(torch.from_numpy(a) for a in
+                                (phi, delta, M, perm)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
 def test_pallas_interpret_simplex_project():
     phi, delta, M, perm = _qp_rows(48, 15, 3)
     got = ops.simplex_project(*(torch.from_numpy(a) for a in
@@ -380,6 +431,8 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "import repro_torch, repro_torch.core, repro_torch.convert\n"
         "import repro_torch.kernels.ops\n"
+        "import repro_torch.launch.serve, repro_torch.serving\n"
+        "import repro_torch.models, repro_torch.configs\n"
         "bad = [m for m in sys.modules if m == 'repro' or "
         "m.startswith('repro.') or m.startswith('jax')]\n"
         "assert not [m for m in bad if sys.modules[m] is not None], bad\n"

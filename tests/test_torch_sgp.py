@@ -107,10 +107,13 @@ def check_port_row(ref, spec, bucketed=False, phi_atol=1e-4):
     for cost in ("link_cost", "comp_cost"):
         t = getattr(tnet, cost)
         assert t.family == str(ref[f"{cost}_family"])
-        # the reference measures φ⁰ with a dense solve up to V = 200, the
-        # port with the sparse engine: capacities agree to f32 rounding
+        # both packages measure φ⁰ with the dense LU solve up to V = 200;
+        # they still sum the flows over the tasks in different orders
+        # (XLA's CPU reduce goes left to right, with w·g fused, up to 32
+        # tasks and in two halves up to 64), which moves the capacities
+        # of fog and geant by up to 2.42e-7 relative
         np.testing.assert_allclose(t.params.numpy(), ref[f"{cost}_params"],
-                                   rtol=1e-6, err_msg=cost)
+                                   rtol=2.5e-7, err_msg=cost)
     tphi0 = tcore.spt_phi_sparse(tnet)
     for f, got in zip(PHI_FIELDS, phi_sparse_to_numpy(tphi0)):
         np.testing.assert_array_equal(got, ref[f"phi0_{f}"], err_msg=f)

@@ -16,10 +16,14 @@
    q [1, 16, L, 128] against k, v [1, 8, L, 128], causal, L in {17, 128,
    333, 512}, and `decode_attention` (K5) on its decode, q [8, 8, 2, 128]
    against [8, 1024, 8, 128] caches with ragged lengths from 1 to 1024,
-   both in float32 (rtol = atol = 2e-4) and bfloat16 (2e-2).  Prints the
-   times of each, and for K4 and K5 that of PyTorch's
-   scaled_dot_product_attention on the same inputs as a yardstick; K4
-   and K5, whose calls are shorter than their host-side launch, are
+   both in float32 (rtol = atol = 2e-4) and bfloat16 (2e-2); `ssd_scan`
+   (K6) on Mamba2-130M's prefill, x [B, L, 24, 64], dt [B, L, 24], A
+   [24], B/C [B, L, 128], L in {17, 128, 256, 512} at B = 1 and L = 256
+   at B = 4, float32 and bfloat16, plus one float32 case from an initial
+   state: y to 1e-4 (float32) or 1e-2 (bfloat16, one ulp) and the final
+   state to 1e-4.  Prints the times of each, and for K4 and K5 that of
+   PyTorch's scaled_dot_product_attention on the same inputs as a
+   yardstick (no PyTorch call computes K6's function); K4, K5 and K6 are
    timed by the profiler's device time (CUDA events around the run are
    printed beside it), the others by CUDA events.
 3. Drives the sparse main path, Algorithm 1 for 20 iterations: sw_1000
@@ -28,30 +32,35 @@
    finite and non-increasing, and the accepted costs equal to the JAX
    reference's golden trajectory (`src/repro_torch/data/
    reference_costs.json`) to rtol 2e-4.
-4. Serves Qwen3-0.6B at full width (28 layers, random weights from
-   SERVE_SEED) through `ServingEngine`: 12 requests on 8 slots, max_len
-   1024, 32 new tokens.  In float32 (TF32 off) the tokens must equal the
-   JAX engine's (`src/repro_torch/data/reference_serve.json`) and the
-   logits at its top-5 indices hold to rtol 1e-3; a token may differ
-   only where the stored top-2 margin is under that tolerance, and the
-   request's comparison stops there.  In bfloat16 the same requests run
-   through the kernels, timed: 28 K4 launches per prefill and 28 K5
-   launches per decode step, every request done with the output length
-   its budget and EOS dictate; prints prefill ms per request, decode ms
-   per step, tokens/s and peak memory.  Then, with every logits row
-   kept, they run through the kernels again (the same tokens), with the
-   plain attention forced (`attn_impl="ref"`), and with the plain
-   attention taking the keys in reverse order (the witness: the same
-   function, another float32 summation order).  At the prefill and at
-   each decode step until the tokens part, the kernels' logits may be
-   no further from the plain run's than 1.5 times the witness's, in max
-   abs and in relative L2; whether they are within 2e-2 is printed.
+4. Serves Qwen3-0.6B (28 layers), then Mamba2-130M (24 layers), at full
+   width through `ServingEngine`, random weights from SERVE_SEED: 12
+   requests on 8 slots, max_len 1024, 32 new tokens (Mamba2's prompts
+   are 16-256 tokens, two of them 512: the chunk contract).  In float32
+   (TF32 off) the tokens must equal the JAX engine's
+   (`src/repro_torch/data/reference_serve.json`,
+   `reference_serve_mamba2.json`) and the logits at its top-5 indices
+   hold to rtol 1e-3; a token may differ only where the stored top-2
+   margin is under that tolerance, and the request's comparison stops
+   there.  In bfloat16 the same requests run through the kernels,
+   timed: per layer one K4 launch per prefill and one K5 per decode
+   step (Qwen3), one K6 per prefill and none per decode step (Mamba2),
+   no other kernel, every request done with the output length its
+   budget and EOS dictate; prints prefill ms per request, decode ms per
+   step, tokens/s and peak memory.  Then, with every logits row kept,
+   they run through the kernels again (the same tokens), with the plain
+   versions forced (`impl="ref"`), and with the witness: the plain
+   versions taking their float32 sums in another order (attention over
+   the keys in reverse order; the SSD as `ssd_sequential`, token by
+   token).  At the prefill and at each decode step until the tokens
+   part, the kernels' logits may be no further from the plain run's
+   than 1.5 times the witness's, in max abs and in relative L2; whether
+   they are within 2e-2 is printed.
 5. Prints one `kernels` JSON line and, last, the device line.
 
 With `--profile` it also traces one more 20-iteration run of each sparse
-path, and one bfloat16 decode of the serving requests, with
-torch.profiler and prints the device time by kernel and the device's
-busy share (not part of the checks above).
+path, and one bfloat16 serve of each model, with torch.profiler and
+prints the device time by kernel and the device's busy share (not part
+of the checks above).
 
 Exits non-zero on any failure, and when no CUDA device is present.
 Every earlier line is a JSON record, except the nvidia-smi line.
@@ -80,6 +89,12 @@ SERVE_SEED = 0
 SERVE_REQUESTS = 12
 SERVE_CONFIG = {"max_slots": 8, "max_len": 1024, "max_new_tokens": 32,
                 "eos_id": 1}
+# the Mamba2 serving phases: mamba2-130m at full width, the same seed and
+# engine settings, the requests of reference_serve_mamba2.json
+MAMBA_ARCH = "mamba2-130m"
+MAMBA_REQUESTS = 12
+# K6's own chunk (csrc/ssd_scan.cu, kQ): its operation count in bound_ms
+SSD_KERNEL_CHUNK = 64
 
 
 def emit(record: dict) -> None:
@@ -122,15 +137,21 @@ def device_ms(torch, fn, reps: int) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA")
-                and e.key != "Activity Buffer Request")
-    return total / 1e3 / reps
+    # the profiler can hand back no device events for a window: take it
+    # again, and fail rather than report 0 ms
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA")
+                    and e.key != "Activity Buffer Request")
+        if total > 0:
+            return total / 1e3 / reps
+    raise RuntimeError("the profiler recorded no device time in three "
+                       "windows")
 
 
 def substochastic(torch, gen, mask, S, scale):
@@ -343,6 +364,8 @@ def main() -> int:
 
     # ------------------------------------- K4 flash / K5 decode attention
     attention_kernel_checks(torch, emit_kernel=headline)
+    # ------------------------------------------------------ K6 ssd_scan
+    ssd_kernel_checks(torch, emit_kernel=headline)
 
     # -------------------------------------------------------- main path
     with open(os.path.join(src, "repro_torch", "data",
@@ -389,9 +412,17 @@ def main() -> int:
               "ms_per_iteration": seconds * 1e3 / n_exec,
               "first_cost": costs[0], "final_cost": costs[-1],
               "max_rel_err_vs_reference": rel})
-    # ------------------------------------------------ serving Qwen3-0.6B
-    serve_counts, serve_bf16 = serve_checks(torch, src)
+    # ------------------------------------- serving Qwen3-0.6B, Mamba2-130M
+    serve_counts, serve_bf16 = serve_checks(
+        torch, src, SERVE_ARCH, "reference_serve.json", SERVE_REQUESTS,
+        witness=reversed_keys, per_prefill=("flash_attention",),
+        per_decode=("decode_attention",))
     path_launches.update(serve_counts)
+    mamba_counts, mamba_bf16 = serve_checks(
+        torch, src, MAMBA_ARCH, "reference_serve_mamba2.json",
+        MAMBA_REQUESTS, witness=sequential_ssd, per_prefill=("ssd_scan",),
+        per_decode=())
+    path_launches.update(mamba_counts)
     for k, v in path_launches.items():
         require(v > 0, f"kernel {k} was never launched on its path")
 
@@ -409,7 +440,9 @@ def main() -> int:
                    "src/repro/kernels/flash_attention.py:68"),
                "decode_attention": (
                    "src/repro_torch/kernels/csrc/decode_attention.cu",
-                   "src/repro/kernels/decode_attention.py:62")}
+                   "src/repro/kernels/decode_attention.py:62"),
+               "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                            "src/repro/kernels/ssd_scan.py:80")}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k][0],
          "replaces": sources[k][1], "launches": path_launches[k],
@@ -421,7 +454,10 @@ def main() -> int:
         for k in sources]})
     if "--profile" in sys.argv[1:]:
         profile_paths(torch, core, nets, nbrs, bks)
-        profile_decode(torch, *serve_bf16)
+        profile_decode(torch, *serve_bf16, label=f"serve {SERVE_ARCH} "
+                       "bfloat16")
+        profile_decode(torch, *mamba_bf16, label=f"serve {MAMBA_ARCH} "
+                       "bfloat16")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -603,6 +639,87 @@ def attention_kernel_checks(torch, emit_kernel):
                     bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
+def ssd_ops(B, L, H, P, N, Q=SSD_KERNEL_CHUNK) -> float:
+    """Floating-point operations of the chunked SSD at chunk Q, as K6
+    runs it: per chunk of q tokens the causal C·Bᵀ tile (q(q+1)/2·N
+    multiply-adds, shared by the heads), the causal intra-chunk product
+    (q(q+1)/2·H·P), the state read and the state update (q·N·H·P
+    each); two operations a multiply-add."""
+    total = 0.0
+    for t0 in range(0, L, Q):
+        q = min(Q, L - t0)
+        tri = q * (q + 1) / 2
+        total += tri * N + tri * H * P + 2.0 * q * N * H * P
+    return 2.0 * B * total
+
+
+def ssd_kernel_checks(torch, emit_kernel):
+    """K6 against its plain version (the chunked SSD at chunk min(256, L))
+    at the Mamba2-130M prefill's shapes, x [B, L, 24, 64], dt [B, L, 24],
+    A [24], B/C [B, L, 128], in float32 and bfloat16: y and the final
+    state.  Inputs as the model makes them: x, B and C through SiLU, dt
+    through softplus, A = -exp(A_log) with A_log in [0, log 16]."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    silu = torch.nn.functional.silu
+    # y: float32 sums of up to a few hundred terms taken in another order
+    # (the kernel's chunk of 64 against the plain version's 256): 1e-4;
+    # in bfloat16 y is rounded once on both sides and may land one ulp
+    # apart (2^-8 relative): 1e-2.  The final state is float32 from the
+    # same inputs in both dtypes: 1e-4.
+    y_tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    s_tol = 1e-4
+    H, P, N = 24, 64, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    cases = [(1, L, dt, False) for dt in (torch.float32, torch.bfloat16)
+             for L in (17, 128, 256, 512)]
+    cases += [(4, 256, dt, False) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(2, 128, torch.float32, True)]      # with an initial state
+    for B, L, dt_, with_init in cases:
+        x = silu(randn(B, L, H, P)).to(dt_)
+        Bm, Cm = silu(randn(B, L, N)).to(dt_), silu(randn(B, L, N)).to(dt_)
+        dt = torch.nn.functional.softplus(randn(B, L, H) - 1.0)
+        A = -torch.exp(torch.rand((H,), generator=gen, device="cuda")
+                       * math.log(16.0))
+        init = randn(B, H, N, P) if with_init else None
+        y, state = ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=init)
+        torch.cuda.synchronize()
+        wy, ws = ref.ssd_scan_ref(x, dt, A, Bm, Cm, init_state=init)
+        err_y, ok_y = allclose(torch, y, wy, y_tol[dt_])
+        err_s, ok_s = allclose(torch, state, ws, s_tol)
+        label = f"K6 B={B} L={L} {dt_}" + (" init" if with_init else "")
+        require(y.dtype == dt_ and state.dtype == torch.float32,
+                f"{label}: output dtypes {y.dtype}, {state.dtype}")
+        require(ok_y, f"{label}: y max abs err {err_y} beyond {y_tol[dt_]}")
+        require(ok_s, f"{label}: final state max abs err {err_s} beyond "
+                f"{s_tol}")
+        calls = (lambda: ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=init),
+                 lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm,
+                                          init_state=init))
+        ms, plain = (device_ms(torch, fn, 10) for fn in calls)
+        ev_ms, ev_plain = (time_ms(torch, fn, 10) for fn in calls)
+        elt = x.element_size()
+        n_bytes = (2 * x.numel() + Bm.numel() + Cm.numel()) * elt \
+            + 4 * (dt.numel() + H + state.numel()
+                   + (init.numel() if with_init else 0))
+        bms, by = bound_ms(n_bytes, ssd_ops(B, L, H, P, N))
+        emit({"phase": "kernel", "kernel": "ssd_scan", "case": label,
+              "x": [B, L, H, P], "N": N, "dtype": str(dt_),
+              "max_abs_err": err_y, "tol": y_tol[dt_],
+              "state_max_abs_err": err_s, "state_tol": s_tol,
+              "max_abs_y": float(wy.float().abs().max()),
+              "ms": ms, "plain_ms": plain, "event_ms": [ev_ms, ev_plain],
+              "bound_ms": bms, "bound_by": by})
+        emit_kernel("ssd_scan", max_abs_err=max(err_y, err_s),
+                    main=(B == 1 and L == 512 and dt_ == torch.bfloat16),
+                    ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                    library_ms=None)
+
+
 def watch_tokens(eng, on_token) -> None:
     """Call `on_token(req, logits_row)` with the logits row behind every
     token `eng` (a `ServingEngine`) hands a request, prefill and decode,
@@ -677,6 +794,7 @@ def serve_run(torch, model, prompts, on_token=None):
         watch_tokens(eng, on_token)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    stats["base_gb"] = torch.cuda.memory_allocated() / 1e9
     ops.reset_launches()
     t0 = time.perf_counter()
     eng.run(reqs)
@@ -689,9 +807,10 @@ def serve_run(torch, model, prompts, on_token=None):
     return reqs, stats
 
 
-def check_serve_run(reqs, stats, n_layers, label):
-    """Every request done with the length its budget and EOS dictate, and
-    n_layers K4 launches per prefill and K5 launches per decode step."""
+def check_serve_run(reqs, stats, n_layers, label, per_prefill, per_decode):
+    """Every request done with the length its budget and EOS dictate;
+    n_layers launches of each kernel of `per_prefill` per prefill and of
+    `per_decode` per decode step, and none of any other kernel."""
     eos, budget = SERVE_CONFIG["eos_id"], SERVE_CONFIG["max_new_tokens"]
     for r in reqs:
         require(r.done, f"{label}: request {r.rid} not done")
@@ -704,10 +823,10 @@ def check_serve_run(reqs, stats, n_layers, label):
             require(len(r.out) == cap, f"{label}: request {r.rid} has "
                     f"{len(r.out)} tokens, not {cap}")
     counts = stats["launches"]
-    want = {"flash_attention": n_layers * len(stats["prefill_ms"]),
-            "decode_attention": n_layers * len(stats["decode_ms"])}
-    got = {k: counts[k] for k in want}
-    require(got == want, f"{label}: launches {got} != {want}")
+    want = {k: n_layers * (len(stats["prefill_ms"]) * (k in per_prefill)
+                           + len(stats["decode_ms"]) * (k in per_decode))
+            for k in counts}
+    require(counts == want, f"{label}: launches {counts} != {want}")
 
 
 def serve_summary(stats) -> dict:
@@ -720,6 +839,7 @@ def serve_summary(stats) -> dict:
             "decode_ms_mean": sum(dec) / len(dec),
             "decode_ms_median": dec[len(dec) // 2],
             "peak_memory_gb": stats["peak_gb"],
+            "allocated_before_gb": stats["base_gb"],
             "launches": stats["launches"]}
 
 
@@ -759,6 +879,25 @@ def reversed_keys(torch):
         ref.flash_attention_ref, ref.decode_attention_ref = saved
 
 
+@contextlib.contextmanager
+def sequential_ssd(torch):
+    """Within it the plain SSD scan (`kernels.ref.ssd_scan_ref`, the
+    `impl="ref"` path) is `ssd_sequential`, the token-by-token recurrence:
+    the same function with its float32 sums taken in another order."""
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers.ssd import ssd_sequential
+
+    def scan(x, dt, A, Bm, Cm, init_state=None, chunk=256):
+        return ssd_sequential(x, dt, A, Bm, Cm, init_state=init_state)
+
+    saved = ref.ssd_scan_ref
+    ref.ssd_scan_ref = scan
+    try:
+        yield
+    finally:
+        ref.ssd_scan_ref = saved
+
+
 def logit_gap(run, base) -> dict:
     """Max abs and relative L2 distance between two serving runs' logits
     rows, (requests, {(rid, step): row}), at every step they
@@ -778,27 +917,55 @@ def logit_gap(run, base) -> dict:
     return {"max_abs": worst, "rel_l2": math.sqrt(num / den), "rows": n}
 
 
-def serve_checks(torch, src):
-    """Phase 4: Qwen3-0.6B at full width, float32 against the JAX golden,
-    then bfloat16 through the kernels and through the plain attention.
-    Returns the K4/K5 launch counts of the bfloat16 kernel run and what
-    --profile needs."""
+def one_ulp_shift(torch, model, golden) -> float:
+    """The float32 witness: the largest relative change (against
+    max(|logit|, 1)) of the prefill's logits at the golden's top-5
+    indices when every entry of the embedding table moves by one ulp
+    (times 1 + 2^-23).  Printed beside the float32 serve's gap from the
+    golden, whose rtol it shows the model's own sensitivity to."""
+    from repro_torch.models import module
+    saved = model.embed.detach().clone()
+    worst = 0.0
+    for r in golden["requests"]:
+        prompt = torch.as_tensor([r["prompt"]], device=model.device)
+        idx = torch.as_tensor(r["top5_indices"][0], device=model.device)
+        rows = []
+        for scale in (1.0, 1.0 + 2.0 ** -23):
+            with torch.no_grad():
+                model.embed.copy_(saved * scale)
+            cache = module.zeros(model.init_cache_specs(1, prompt.shape[1]),
+                                 model.device)
+            rows.append(model.prefill(cache, prompt)[0][0, idx].float())
+        worst = max(worst, float(((rows[1] - rows[0]).abs()
+                                  / rows[0].abs().clamp_min(1.0)).max()))
+    with torch.no_grad():
+        model.embed.copy_(saved)
+    return worst
+
+
+def serve_checks(torch, src, arch, golden_name, n_requests, witness,
+                 per_prefill, per_decode):
+    """A serving phase at `arch`'s full width: float32 against the JAX
+    golden `golden_name`, then bfloat16 through the kernels, timed and
+    counted, and through the plain versions and the `witness` (a context
+    in which the plain versions take their float32 sums in another
+    order).  Returns the launch counts of the bfloat16 kernel run and
+    what --profile needs."""
     from repro_torch import configs
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.models import build_model, module
     from repro_torch.models.lm import LM
-    with open(os.path.join(src, "repro_torch", "data",
-                           "reference_serve.json")) as f:
+    with open(os.path.join(src, "repro_torch", "data", golden_name)) as f:
         golden = json.load(f)
-    require(golden["arch"] == SERVE_ARCH and golden["seed"] == SERVE_SEED
+    require(golden["arch"] == arch and golden["seed"] == SERVE_SEED
             and golden["serve"] == SERVE_CONFIG
-            and len(golden["requests"]) == SERVE_REQUESTS,
-            "reference_serve.json names another configuration")
-    cfg = configs.get_config(SERVE_ARCH)
+            and len(golden["requests"]) == n_requests,
+            f"{golden_name} names another configuration")
+    cfg = configs.get_config(arch)
     t0 = time.perf_counter()
     specs = LM(cfg, device="meta").param_specs()
     tree = module.init(specs, SERVE_SEED)
-    emit({"phase": "serve_weights", "arch": SERVE_ARCH,
+    emit({"phase": "serve_weights", "arch": arch,
           "params": module.param_count(specs),
           "seconds": time.perf_counter() - t0})
     prompts = [r["prompt"] for r in golden["requests"]]
@@ -821,34 +988,40 @@ def serve_checks(torch, src):
             idx = torch.as_tensor(gidx[req.rid][t], device=row.device)
             seen[(req.rid, t)] = row.float()[idx]
 
+    label = f"{arch} float32 serve"
     reqs, stats = serve_run(torch, model, prompts, on_token=gather)
-    check_serve_run(reqs, stats, cfg.n_layers, "float32 serve")
-    worst, diverged = 0.0, []
+    check_serve_run(reqs, stats, cfg.n_layers, label, per_prefill,
+                    per_decode)
+    worst, worst_prefill, diverged = 0.0, 0.0, []
     for r, g in zip(reqs, golden["requests"]):
         for t, gtok in enumerate(g["tokens"]):
-            require(t < len(r.out), f"float32 serve: request {r.rid} ended "
-                    f"at {len(r.out)} tokens, the reference at "
+            require(t < len(r.out), f"{label}: request {r.rid} ended at "
+                    f"{len(r.out)} tokens, the reference at "
                     f"{len(g['tokens'])}")
             want = torch.tensor(g["top5_values"][t])
             got = seen[(r.rid, t)].cpu()
             rel = float(((got - want).abs()
                          / want.abs().clamp_min(1.0)).max())
             worst = max(worst, rel)
-            require(rel <= 1e-3, f"float32 serve: request {r.rid} step {t}"
-                    f": top-5 logits off by rtol {rel}")
+            worst_prefill = max(worst_prefill, rel if t == 0 else 0.0)
+            require(rel <= 1e-3, f"{label}: request {r.rid} step {t}: "
+                    f"top-5 logits off by rtol {rel}")
             if r.out[t] != gtok:
                 margin = g["top2_margin"][t]
                 require(margin < 1e-3 * max(1.0, abs(want[0].item())),
-                        f"float32 serve: request {r.rid} step {t}: token "
+                        f"{label}: request {r.rid} step {t}: token "
                         f"{r.out[t]} != {gtok} at top-2 margin {margin}")
                 diverged.append({"rid": r.rid, "step": t, "margin": margin})
                 break
         else:
-            require(len(r.out) == len(g["tokens"]), f"float32 serve: "
-                    f"request {r.rid} has {len(r.out)} tokens, the "
-                    f"reference {len(g['tokens'])}")
-    emit({"phase": "serve", "dtype": "float32", "vs": "reference_serve.json",
-          "max_rel_err_top5": worst, "diverged_at_near_ties": diverged,
+            require(len(r.out) == len(g["tokens"]), f"{label}: request "
+                    f"{r.rid} has {len(r.out)} tokens, the reference "
+                    f"{len(g['tokens'])}")
+    emit({"phase": "serve", "arch": arch, "dtype": "float32",
+          "vs": golden_name, "max_rel_err_top5": worst,
+          "max_rel_err_top5_prefill": worst_prefill,
+          "diverged_at_near_ties": diverged,
+          "one_ulp_embed_shift_top5": one_ulp_shift(torch, model, golden),
           **serve_summary(stats)})
     del model
     gc.collect()
@@ -856,62 +1029,61 @@ def serve_checks(torch, src):
 
     # bfloat16, the production dtypes: through the kernels, timed and
     # counted; then, each logits row kept, through the kernels again,
-    # through the plain attention, and through the plain attention with
-    # the keys in reverse order (the witness: the same function in another
-    # float32 summation order)
+    # through the plain versions, and through the witness
     model = build_model(cfg)
     model.load_state_dict(lm_params_from_numpy(cfg, tree, model.device))
     del tree
+    label = f"{arch} bfloat16 serve"
     reqs, stats = serve_run(torch, model, prompts)
-    check_serve_run(reqs, stats, cfg.n_layers, "bfloat16 serve")
-    emit({"phase": "serve", "dtype": "bfloat16", "attention": "kernels",
-          **serve_summary(stats)})
+    check_serve_run(reqs, stats, cfg.n_layers, label, per_prefill,
+                    per_decode)
+    emit({"phase": "serve", "arch": arch, "dtype": "bfloat16",
+          "kernels": "hopper", **serve_summary(stats)})
     runs = {}
     for name, impl, order in (
             ("kernels", None, contextlib.nullcontext()),
             ("plain", "ref", contextlib.nullcontext()),
-            ("witness", "ref", reversed_keys(torch))):
+            ("witness", "ref", witness(torch))):
         rows = {}
 
         def keep(req, row, rows=rows):
             rows[(req.rid, len(req.out) - 1)] = row.float().cpu()
 
-        model.attn_impl = impl
+        model.impl = impl
         with order:
             r_reqs, r_stats = serve_run(torch, model, prompts,
                                         on_token=keep)
-        require(all(r.done for r in r_reqs), f"bfloat16 serve, {name} "
-                "attention: a request is not done")
+        require(all(r.done for r in r_reqs), f"{label}, {name} run: a "
+                "request is not done")
         require(impl is None or not any(r_stats["launches"].values()),
-                f"the {name}-attention run launched a kernel")
+                f"{label}: the {name} run launched a kernel")
         runs[name] = (r_reqs, rows)
-    model.attn_impl = None
+    model.impl = None
     require([r.out for r in runs["kernels"][0]] == [r.out for r in reqs],
-            "bfloat16 serve: two runs through the kernels differ")
-    # bfloat16 rounds at every layer, and 28 layers carry any change of
+            f"{label}: two runs through the kernels differ")
+    # bfloat16 rounds at every layer, and the layers carry any change of
     # float32 rounding into the logits: the kernels are held to what one
-    # such change does to the plain attention, the witness's gap
+    # such change does to the plain versions, the witness's gap
     gaps = {name: logit_gap(runs[name], runs["plain"])
             for name in ("kernels", "witness")}
     from_f32 = {name: max(float((rows[(rid, 0)] - row).abs().max())
                           for rid, row in f32_first.items())
                 for name, (_, rows) in runs.items()}
-    emit({"phase": "serve", "dtype": "bfloat16", "vs_plain": gaps,
-          "prefill_max_abs_vs_float32": from_f32,
+    emit({"phase": "serve", "arch": arch, "dtype": "bfloat16",
+          "vs_plain": gaps, "prefill_max_abs_vs_float32": from_f32,
           "kernels_within_2e-2": gaps["kernels"]["max_abs"] <= 2e-2,
           "same_tokens_as_plain": {name: [a.out == b.out for a, b in zip(
               runs[name][0], runs["plain"][0])] for name in gaps}})
     for key in ("max_abs", "rel_l2"):
         require(gaps["kernels"][key] <= 1.5 * gaps["witness"][key],
-                f"bfloat16 serve: the kernels' logits are {key} "
-                f"{gaps['kernels'][key]} from the plain attention's, more "
+                f"{label}: the kernels' logits are {key} "
+                f"{gaps['kernels'][key]} from the plain versions', more "
                 f"than 1.5x the witness's {gaps['witness'][key]}")
-    counts = {k: stats["launches"][k]
-              for k in ("flash_attention", "decode_attention")}
+    counts = {k: stats["launches"][k] for k in per_prefill + per_decode}
     return counts, (model, prompts)
 
 
-def profile_decode(torch, model, prompts, top=12):
+def profile_decode(torch, model, prompts, label, top=12):
     """Device time by kernel over one traced bfloat16 serving run."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -925,10 +1097,12 @@ def profile_decode(torch, model, prompts, top=12):
     device_ms = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     wall_ms = stats["seconds"] * 1e3
-    emit({"phase": "profile", "scenario": "serve bfloat16",
+    emit({"phase": "profile", "scenario": label,
           "wall_ms": wall_ms, "device_ms": device_ms,
           "busy_share": device_ms / wall_ms,
+          "prefills": len(stats["prefill_ms"]),
           "decode_steps": len(stats["decode_ms"]),
+          "launches": stats["launches"],
           "top": [{"kernel": k[:80], "ms": ms, "calls": n}
                   for k, ms, n in rows[:top]]})
 

@@ -73,11 +73,19 @@ def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
     * `mixer/q_norm`, `mixer/k_norm`, `ln1`, `ln2` keep their shapes, as
       do `ffn/wg`, `ffn/wu [d, f]` and `ffn/wd [f, d]` (the `mixer/` and
       `ffn/` levels are dropped from the names);
+    * a Mamba2 mixer's leaves keep their names and shapes (`in_z`,
+      `in_x`, `in_B`, `in_C`, `in_dt`, `conv_x`, `conv_B`, `conv_C`,
+      `conv_bx`, `conv_bB`, `conv_bC`, `A_log`, `D`, `dt_bias`, `norm`,
+      `out_proj`): no reshapes;
     * `embed [vocab, d]`, `final_norm [d]` and, untied, `unembed
       [d, vocab]` carry over as they are.
 
     Tensors come back float32; `load_state_dict` casts each to the
-    dtype the model keeps it in (matrices in the compute dtype)."""
+    dtype the model keeps it in: the compute dtype for the attention
+    and MLP matrices, `embed` / `unembed`, and the Mamba projections,
+    conv weights and conv biases (`models.layers.mamba.
+    COMPUTE_DTYPE_LEAVES`); the parameter dtype for the norm scales;
+    float32 for `A_log`, `D` and `dt_bias`."""
     from .models.lm import LM
     dev = resolve_device(device)
     period = cfg.scan_period()

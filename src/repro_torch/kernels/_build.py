@@ -19,7 +19,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("edge_rounds", "simplex_project", "flash_attention",
-           "decode_attention")
+           "decode_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -94,6 +94,9 @@ _SIGNATURES = {
         "decode_attention_launch": [_INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
                                     _PTR, _INT, _INT, _INT, _INT]
                                    + [_LONG] * 12 + [_FLOAT, _PTR],
+    },
+    "ssd_scan": {
+        "ssd_scan_launch": [_INT] + [_PTR] * 8 + [_INT] * 5 + [_PTR],
     },
 }
 

@@ -2,7 +2,9 @@
 
 K1 `edge_rounds`, K2 `edge_rounds_bucketed` and K3 `simplex_project`
 carry the sparse engine; K4 `flash_attention` and K5 `decode_attention`
-carry the LM's prefill and decode.
+carry the attention LM's prefill and decode; K6 `ssd_scan` carries the
+Mamba2 mixer's prefill (its decode step is plain PyTorch: the JAX package
+has no kernel for it).
 
 A CUDA tensor goes to the kernel; a CPU tensor goes to the plain
 PyTorch version.  `impl="ref"` forces the plain version on any device
@@ -20,9 +22,10 @@ from .decode_attention import decode_attention_cuda
 from .edge_rounds import edge_rounds_bucketed_cuda, edge_rounds_cuda
 from .flash_attention import flash_attention_cuda
 from .simplex_project import simplex_project_cuda
+from .ssd_scan import ssd_scan_cuda
 
 KERNELS = (edge_rounds_cuda, edge_rounds_bucketed_cuda, simplex_project_cuda,
-           flash_attention_cuda, decode_attention_cuda)
+           flash_attention_cuda, decode_attention_cuda, ssd_scan_cuda)
 
 
 def reset_launches() -> None:
@@ -35,7 +38,8 @@ def launches() -> dict:
             "edge_rounds_bucketed": edge_rounds_bucketed_cuda.launches,
             "simplex_project": simplex_project_cuda.launches,
             "flash_attention": flash_attention_cuda.launches,
-            "decode_attention": decode_attention_cuda.launches}
+            "decode_attention": decode_attention_cuda.launches,
+            "ssd_scan": ssd_scan_cuda.launches}
 
 
 def _pick(impl: Optional[str], t: torch.Tensor) -> str:
@@ -141,3 +145,19 @@ def decode_attention(q, k_cache, v_cache, lengths,
     if _pick(impl, q) == "ref":
         return _ref.decode_attention_ref(q, k_cache, v_cache, lengths)
     return decode_attention_cuda(q, k_cache, v_cache, lengths)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, init_state=None, chunk: int = 256,
+             impl: Optional[str] = None):
+    """Mamba2 SSD scan: x [B, L, H, P], dt [B, L, H], A [H], Bm / Cm
+    [B, L, N] -> (y [B, L, H, P], final state [B, H, N, P] float32).
+    The caller's chunk contract holds on both routes: with chunk
+    min(chunk, L), L must be a multiple of it (the JAX model path
+    asserts the same), though the kernel itself takes any L."""
+    L = x.shape[1]
+    if L % min(chunk, L):
+        raise AssertionError((L, chunk))
+    if _pick(impl, x) == "ref":
+        return _ref.ssd_scan_ref(x, dt, A, Bm, Cm, init_state=init_state,
+                                 chunk=chunk)
+    return ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=init_state)

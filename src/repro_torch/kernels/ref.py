@@ -21,6 +21,11 @@ package's `kernels/ref.py` and `core/sgp.py:project_rows`:
   input dtype, as in the Pallas kernels (the JAX package's references
   round the probabilities to the input dtype before the product with v;
   at float32 the two agree to rounding).
+* `ssd_scan_ref` is the SSD scan kernel's function in the chunked form
+  that the model path computes (`models/layers/ssd.py:ssd_chunked`,
+  float32, y cast to x's dtype), with the final state.  The JAX
+  package's `ssd_scan_ref` is the sequential form; the two agree to
+  float32 rounding.
 """
 from __future__ import annotations
 
@@ -205,3 +210,12 @@ def decode_attention_ref(q, k_cache, v_cache, lengths) -> torch.Tensor:
              < lengths.to(q.device)[:, None])
     s = torch.where(valid[:, None, None], s, NEG_INF)
     return _softmax_pv(s, vf).to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, init_state=None, chunk: int = 256):
+    """x [B, L, H, P], dt [B, L, H], A [H], Bm / Cm [B, L, N] ->
+    (y [B, L, H, P] in x's dtype, final state [B, H, N, P] float32):
+    `ssd_chunked` at chunk min(chunk, L), which asserts L % chunk == 0."""
+    from ..models.layers.ssd import ssd_chunked
+    return ssd_chunked(x, dt, A, Bm, Cm, chunk=min(chunk, x.shape[1]),
+                       init_state=init_state)

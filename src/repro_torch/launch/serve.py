@@ -4,6 +4,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --reduced --requests 12 --max-new 16 --device cpu
 
+`--arch` takes the families the port runs: the dense attention LMs
+(qwen3-0.6b and the like) and mamba2-130m; `--full` serves at the
+config's full width.  Mamba2 prompts must be at most `ssm_chunk` tokens
+long or a multiple of it (the JAX model path's contract); the drawn
+prompts (4 to 11 tokens) are.
+
 This is the engine half of the JAX package's `repro.launch.serve`; the
 SGP request router that opens that script (the paper's optimizer
 planning the pod-level dispatch) comes with ROADMAP item P11, the port
@@ -36,9 +42,9 @@ def make_requests(n: int, vocab: int, seed: int, lo: int = 4,
             for i in range(n)]
 
 
-def load_model(cfg, seed: int, device=None, attn_impl=None):
+def load_model(cfg, seed: int, device=None, impl=None):
     """The port's LM on `device` with weights drawn from `seed`."""
-    model = build_model(cfg, device=device, attn_impl=attn_impl)
+    model = build_model(cfg, device=device, impl=impl)
     tree = module.init(model.param_specs(), seed)
     model.load_state_dict(lm_params_from_numpy(cfg, tree, model.device))
     return model

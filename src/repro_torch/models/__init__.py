@@ -1,12 +1,13 @@
-"""Model zoo of the port: the dense attention-only decoder LM so far."""
+"""Model zoo of the port: the decoder LM, dense attention and Mamba2
+(SSM) families so far."""
 from .config import ModelConfig, reduced
 from .lm import LM
 from . import module
 
 
-def build_model(cfg: ModelConfig, device=None, attn_impl=None) -> LM:
+def build_model(cfg: ModelConfig, device=None, impl=None) -> LM:
     """cfg -> LM on `device` (None: the card), weights uninitialised;
     load them with `convert.lm_params_from_numpy`.  Families the port
     does not run yet raise NotImplementedError naming their ROADMAP
     item."""
-    return LM(cfg, device=device, attn_impl=attn_impl)
+    return LM(cfg, device=device, impl=impl)

@@ -1,5 +1,5 @@
-"""Decoder language model, dense attention-only family (PyTorch port of
-the JAX package's `models/lm.py`).
+"""Decoder language model: the dense attention family and the Mamba2
+(SSM) family (PyTorch port of the JAX package's `models/lm.py`).
 
     LM(cfg).param_specs()                      -> spec tree (JAX layout)
     LM(cfg).init_cache_specs(batch, max_len)   -> cache spec tree
@@ -7,15 +7,22 @@ the JAX package's `models/lm.py`).
     LM(cfg).decode_step(cache, tokens, pos)    -> (logits, cache)
 
 Weights live in the module (load them with `convert.lm_params_from_numpy`
-and `load_state_dict`): the matrices in the compute dtype (cast once at
-load, which gives the numbers of the JAX package's cast at each use),
-the norm scales in the parameter dtype.  Layers are a plain
+and `load_state_dict`): the matrices (and the Mamba conv weights and
+biases) in the compute dtype (cast once at load, which gives the numbers
+of the JAX package's cast at each use), the norm scales and Mamba's
+A_log, D and dt_bias in the parameter dtype.  Layers are a plain
 `nn.ModuleList`, no layer stacking.  The cache keeps the JAX layout,
-{"slot_00": {"k", "v": [n_layers, B, S_max, KV, hd]}}, and prefill and
-decode write it in place.  A dense LM has no mutable state, so the JAX
-package's `state` argument is dropped.  Mamba mixers, MoE FFNs, M-RoPE
-and the encoder-decoder family raise NotImplementedError (ROADMAP
-queue 1).
+n_layers / period groups stacked first: an attention slot holds
+{"k", "v": [G, B, S_max, KV, hd]}, a Mamba slot {"ssm": [G, B, H, N, P]
+float32, "conv_x" / "conv_B" / "conv_C": [G, B, 3, width] in the cache
+dtype}; prefill and decode write it in place, and a prefill overwrites
+every leaf of the lanes it is given.  The LM has no mutable state, so
+the JAX package's `state` argument is dropped.  MoE FFNs, M-RoPE and the
+encoder-decoder family raise NotImplementedError (ROADMAP queue 1).
+
+`impl` steers every kernel of the model (K4 and K5 in attention, K6 in
+the Mamba prefill): None takes the Hopper kernels on the card and the
+plain versions on the CPU; "ref" forces the plain versions.
 """
 from __future__ import annotations
 
@@ -27,13 +34,12 @@ from torch import nn
 from .config import ModelConfig
 from .module import ParamSpec
 from .layers import attention as attn
+from .layers import mamba as mb
 from .layers import mlp as mlpl
 from .layers.norms import rmsnorm, rmsnorm_spec
 from .layers.rope import rope_angles
 
 _UNPORTED = {
-    "mamba": "the Mamba2 mixer comes with the mamba2-130m serving slice "
-             "(ROADMAP queue 1, P13b)",
     "moe": "the MoE FFN comes with the OLMoE serving slice "
            "(ROADMAP queue 1, P13c)",
 }
@@ -67,7 +73,7 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None,
-                 attn_impl: Optional[str] = None):
+                 impl: Optional[str] = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
@@ -76,7 +82,7 @@ class LM(nn.Module):
         self.pattern = cfg.layer_pattern()[: self.period]
         # None: the Hopper kernels on the card, the plain versions on the
         # CPU; "ref" forces the plain versions
-        self.attn_impl = attn_impl
+        self.impl = impl
         dev = torch.device("cuda" if device is None else device)
         cd, pd = cfg.compute_dtype, cfg.param_dtype
         d, hd = cfg.d_model, cfg.hd
@@ -85,15 +91,21 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = _param((d, cfg.vocab), cd, dev)
         layers = []
-        for _, ffn in cfg.layer_pattern():
-            p = {"ln1": _param((d,), pd, dev),
-                 "wq": _param((d, cfg.n_heads * hd), cd, dev),
-                 "wk": _param((d, cfg.n_kv_heads * hd), cd, dev),
-                 "wv": _param((d, cfg.n_kv_heads * hd), cd, dev),
-                 "wo": _param((cfg.n_heads * hd, d), cd, dev)}
-            if cfg.qk_norm:
-                p["q_norm"] = _param((hd,), pd, dev)
-                p["k_norm"] = _param((hd,), pd, dev)
+        for mixer, ffn in cfg.layer_pattern():
+            p = {"ln1": _param((d,), pd, dev)}
+            if mixer == "attn":
+                p.update(wq=_param((d, cfg.n_heads * hd), cd, dev),
+                         wk=_param((d, cfg.n_kv_heads * hd), cd, dev),
+                         wv=_param((d, cfg.n_kv_heads * hd), cd, dev),
+                         wo=_param((cfg.n_heads * hd, d), cd, dev))
+                if cfg.qk_norm:
+                    p["q_norm"] = _param((hd,), pd, dev)
+                    p["k_norm"] = _param((hd,), pd, dev)
+            else:
+                for name, spec in mb.mamba_specs(cfg).items():
+                    p[name] = _param(spec.shape, cd if name in
+                                     mb.COMPUTE_DTYPE_LEAVES else spec.dtype,
+                                     dev)
             if ffn == "dense":
                 p["ln2"] = _param((d,), pd, dev)
                 p["wg"] = _param((d, cfg.d_ff), cd, dev)
@@ -110,7 +122,8 @@ class LM(nn.Module):
     def _slot_specs(self, mixer: str, ffn: str) -> dict:
         cfg = self.cfg
         d = {"ln1": rmsnorm_spec(cfg.d_model),
-             "mixer": attn.attention_specs(cfg)}
+             "mixer": (attn.attention_specs(cfg) if mixer == "attn"
+                       else mb.mamba_specs(cfg))}
         if ffn != "none":
             d["ln2"] = rmsnorm_spec(cfg.d_model)
             d["ffn"] = mlpl.mlp_specs(cfg)
@@ -137,12 +150,25 @@ class LM(nn.Module):
 
     def init_cache_specs(self, batch: int, max_len: int) -> dict:
         cfg = self.cfg
-        kv = ParamSpec((self.n_groups, batch, max_len, cfg.n_kv_heads,
-                        cfg.hd),
-                       ("layers", "batch", "cache_seq", "kv_heads",
-                        "head_dim"), cfg.cache_dtype, init="zeros")
-        return {f"slot_{j:02d}": {"k": kv, "v": kv}
-                for j in range(self.period)}
+        G = self.n_groups
+        out = {}
+        for j, (mixer, _) in enumerate(self.pattern):
+            if mixer == "attn":
+                kv = ParamSpec((G, batch, max_len, cfg.n_kv_heads, cfg.hd),
+                               ("layers", "batch", "cache_seq", "kv_heads",
+                                "head_dim"), cfg.cache_dtype, init="zeros")
+                out[f"slot_{j:02d}"] = {"k": kv, "v": kv}
+            else:
+                sh = mb.mamba_cache_shapes(cfg, batch)
+                axes = {"ssm": ("heads", None, None),
+                        "conv_x": (None, "mlp"), "conv_B": (None, None),
+                        "conv_C": (None, None)}
+                out[f"slot_{j:02d}"] = {
+                    k: ParamSpec((G,) + sh[k], ("layers", "batch") + axes[k],
+                                 torch.float32 if k == "ssm"
+                                 else cfg.cache_dtype, init="zeros")
+                    for k in sh}
+        return out
 
     # ----------------------------------------------------------- forward
     def _logits(self, x):
@@ -150,25 +176,34 @@ class LM(nn.Module):
         return x @ w
 
     def _blocks(self, x, cos, sin, cache, pos=None):
-        """All layers; prefill when pos is None, else one decode step."""
+        """All layers; prefill when pos is None, else one decode step.
+        Each layer's cache leaves are written in place."""
         cfg = self.cfg
         for i, p in enumerate(self.layers):
             g, j = divmod(i, self.period)
-            kc = cache[f"slot_{j:02d}"]["k"][g]
-            vc = cache[f"slot_{j:02d}"]["v"][g]
+            c = {k: v[g] for k, v in cache[f"slot_{j:02d}"].items()}
             h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-            q, k, v = attn.qkv(p, h, cfg, cos, sin)
-            if pos is None:
-                L = x.shape[1]
-                kc[:, :L] = k.to(kc.dtype)
-                vc[:, :L] = v.to(vc.dtype)
-                o = attn.full_attention(q, k, v, causal=True,
-                                        impl=self.attn_impl)
+            if self.pattern[j][0] == "mamba":
+                if pos is None:
+                    out, new = mb.mamba(p, h, cfg, impl=self.impl)
+                else:
+                    out, new = mb.mamba_decode(p, c, h, cfg)
+                for k, v in new.items():
+                    c[k].copy_(v)
+                x = x + out
             else:
-                attn.cache_update(kc, vc, k, v, pos)
-                o = attn.decode_attention(q, kc, vc, pos + 1,
-                                          impl=self.attn_impl)
-            x = x + attn.out_proj(p, o)
+                q, k, v = attn.qkv(p, h, cfg, cos, sin)
+                if pos is None:
+                    L = x.shape[1]
+                    c["k"][:, :L] = k.to(c["k"].dtype)
+                    c["v"][:, :L] = v.to(c["v"].dtype)
+                    o = attn.full_attention(q, k, v, causal=True,
+                                            impl=self.impl)
+                else:
+                    attn.cache_update(c["k"], c["v"], k, v, pos)
+                    o = attn.decode_attention(q, c["k"], c["v"], pos + 1,
+                                              impl=self.impl)
+                x = x + attn.out_proj(p, o)
             if "wg" in p:
                 x = x + mlpl.mlp(p, rmsnorm(p["ln2"], x, cfg.norm_eps))
         return x

@@ -17,10 +17,16 @@ The model contract: `init_cache_specs(batch, max_len)`, `prefill(cache,
 tokens [1, L]) -> (logits [1, V], cache)` and `decode_step(cache,
 tokens [B, 1], pos [B]) -> (logits [B, V], cache)`, where prefill and
 decode write the cache tensors they are given in place.  Admission
-hands prefill views of the slot's lane, so it writes back exactly that
-lane.  The JAX engine's per-slot lanes of a mutable model state matter
-only for models with such state (MoE load EMAs); they come with the
-MoE slice (ROADMAP queue 1).
+hands prefill views of the slot's lane, `c[:, slot:slot + 1]` of every
+cache leaf [layers, slots, ...], so it writes back exactly that lane:
+the KV cache of an attention layer, and the SSM state [layers, slots,
+H, N, P] and the three conv tails [layers, slots, 3, width] of a Mamba2
+layer, which its prefill overwrites whole (the lock-step decode leaves
+garbage in idle lanes).  `pos` matters to attention only; the
+`max_len - 1` stop rule holds for every model.  The JAX engine's
+per-slot lanes of a mutable model state matter only for models with
+such state (MoE load EMAs); they come with the MoE slice (ROADMAP
+queue 1).
 """
 from __future__ import annotations
 

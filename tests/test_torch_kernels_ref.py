@@ -430,9 +430,11 @@ def test_port_imports_without_jax():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import repro_torch, repro_torch.core, repro_torch.convert\n"
-        "import repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.ssd_scan\n"
         "import repro_torch.launch.serve, repro_torch.serving\n"
         "import repro_torch.models, repro_torch.configs\n"
+        "import repro_torch.models.layers.mamba\n"
+        "import repro_torch.models.layers.ssd\n"
         "bad = [m for m in sys.modules if m == 'repro' or "
         "m.startswith('repro.') or m.startswith('jax')]\n"
         "assert not [m for m in bad if sys.modules[m] is not None], bad\n"

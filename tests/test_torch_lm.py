@@ -159,8 +159,24 @@ def test_configs_copy_over(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "olmoe-1b-7b",
-                                  "jamba-v0.1-52b", "mamba2-130m",
-                                  "whisper-base", "qwen2-vl-7b"])
+                                  "jamba-v0.1-52b", "whisper-base",
+                                  "qwen2-vl-7b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(configs.get_reduced(arch), device="cpu")
+
+
+@pytest.mark.parametrize("get", ["get_reduced", "get_config"])
+def test_mamba2_builds(get):
+    """The SSM family is ported: mamba2-130m builds, reduced and at full
+    width (on the meta device), with one Mamba mixer a layer and the
+    parameter count of the JAX package's specs."""
+    cfg = getattr(configs, get)("mamba2-130m")
+    model = build_model(cfg, device="meta" if get == "get_config" else "cpu")
+    assert len(model.layers) == cfg.n_layers
+    assert all("A_log" in p and "wq" not in p for p in model.layers)
+    n = sum(t.numel() for t in model.state_dict().values())
+    assert n == module.param_count(model.param_specs())
+    if get == "get_config":
+        assert n == jmodule.param_count(JLM(jconfigs.get_config(
+            "mamba2-130m")).param_specs())

@@ -14,18 +14,24 @@
    bit for bit (K1, K2) or to atol 1e-5 with every row summing to 1 or
    all zero (K3); `flash_attention` (K4) on Qwen3-0.6B's prefill,
    q [1, 16, L, 128] against k, v [1, 8, L, 128], causal, L in {17, 128,
-   333, 512}, and `decode_attention` (K5) on its decode, q [8, 8, 2, 128]
-   against [8, 1024, 8, 128] caches with ragged lengths from 1 to 1024,
-   both in float32 (rtol = atol = 2e-4) and bfloat16 (2e-2); `ssd_scan`
+   333, 512}, and on OLMoE's, k, v [1, 16, L, 128], L in {17, 333, 512},
+   and `decode_attention` (K5) on their decode steps, q [8, 8, 2, 128]
+   against [8, 1024, 8, 128] caches and q [8, 16, 1, 128] against
+   [8, 1024, 16, 128], with ragged lengths from 1 to 1024, all in
+   float32 (rtol = atol = 2e-4) and bfloat16 (2e-2); `ssd_scan`
    (K6) on Mamba2-130M's prefill, x [B, L, 24, 64], dt [B, L, 24], A
    [24], B/C [B, L, 128], L in {17, 128, 256, 512} at B = 1 and L = 256
    at B = 4, float32 and bfloat16, plus one float32 case from an initial
    state: y to 1e-4 (float32) or 1e-2 (bfloat16, one ulp) and the final
-   state to 1e-4.  Prints the times of each, and for K4 and K5 that of
-   PyTorch's scaled_dot_product_attention on the same inputs as a
-   yardstick (no PyTorch call computes K6's function); K4, K5 and K6 are
-   timed by the profiler's device time (CUDA events around the run are
-   printed beside it), the others by CUDA events.
+   state to 1e-4; `moe_gmm` (K7) on OLMoE's expert products, [64, C,
+   2048] @ [64, 2048, 1024] and [64, C, 1024] @ [64, 1024, 2048] at
+   C in {4, 52, 80}, plus two ragged shapes, in float32 (rtol 1e-5 of
+   Σ|x·w|) and bfloat16 (one ulp).  Prints the times of each, and for K4
+   and K5 that of PyTorch's scaled_dot_product_attention, for K7 that of
+   torch.bmm, on the same inputs as a yardstick (no PyTorch call
+   computes K6's function); K4–K7 are timed by the profiler's device
+   time (for K4 and K5 CUDA events around the run are printed beside
+   it), the others by CUDA events.
 3. Drives the sparse main path, Algorithm 1 for 20 iterations: sw_1000
    padded (K1 + K3) and ba_10000 bucketed (K2 + K3).  The launch counts
    must be 2 + 5·n and 2·n for the n iterations executed, every cost
@@ -55,10 +61,25 @@
    part, the kernels' logits may be no further from the plain run's
    than 1.5 times the witness's, in max abs and in relative L2; whether
    they are within 2e-2 is printed.
-5. Prints one `kernels` JSON line and, last, the device line.
+5. Serves OLMoE-1B-7B at full width, the same requests and settings,
+   with the router's load EMAs as the model state.  Float32 at
+   OLMOE_F32_LAYERS layers against `reference_serve_olmoe.json`, call
+   by call in the engine's order; the EMAs are engine-global, so the
+   first call that fails ends the comparison and passes only at a
+   routing near-tie (the call's smallest gap between a token's K-th
+   and (K+1)-th selection logits under 1e-4 of max(1, |K-th|)) or a
+   top-2 near-tie; with none the final EMAs hold to rtol 1e-5.  The
+   smallest router gap of the run is printed.  Bfloat16 at all 16
+   layers, weights drawn on the card with a torch.Generator: per layer
+   one K4 and three K7 per prefill, one K5 and three K7 per decode
+   step; then the plain versions choose the tokens and at every call
+   the kernels and the witness (keys and the gmm's D reversed) take the
+   same inputs, the kernels held to 1.5 times the witness's distance.
+6. Prints one `kernels` JSON line and, last, the device line.
 
 With `--profile` it also traces one more 20-iteration run of each sparse
-path, and one bfloat16 serve of each model, with torch.profiler and
+path, and one bfloat16 serve of each of the three models, with
+torch.profiler and
 prints the device time by kernel and the device's busy share (not part
 of the checks above).
 
@@ -67,6 +88,7 @@ Every earlier line is a JSON record, except the nvidia-smi line.
 """
 import contextlib
 import gc
+import itertools
 import json
 import math
 import os
@@ -95,9 +117,21 @@ MAMBA_ARCH = "mamba2-130m"
 MAMBA_REQUESTS = 12
 # K6's own chunk (csrc/ssd_scan.cu, kQ): its operation count in bound_ms
 SSD_KERNEL_CHUNK = 64
+# the OLMoE serving phases: olmoe-1b-7b at full width, the same seed,
+# engine settings and request recipe; float32 at OLMOE_F32_LAYERS layers
+# against reference_serve_olmoe.json, bfloat16 at all 16
+OLMOE_ARCH = "olmoe-1b-7b"
+OLMOE_REQUESTS = 12
+OLMOE_F32_LAYERS = 4
+
+
+T0 = time.perf_counter()
 
 
 def emit(record: dict) -> None:
+    """One JSON line; a phase's record carries the seconds since start."""
+    if "phase" in record:
+        record = {**record, "at_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(record), flush=True)
 
 
@@ -138,19 +172,27 @@ def device_ms(torch, fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
     # the profiler can hand back no device events for a window: take it
-    # again, and fail rather than report 0 ms
-    for _ in range(3):
+    # again, longer, and fail rather than report 0 ms
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
+        events = prof.key_averages()
+        total = sum(e.self_device_time_total for e in events
                     if str(e.device_type).endswith("CUDA")
                     and e.key != "Activity Buffer Request")
         if total > 0:
             return total / 1e3 / reps
-    raise RuntimeError("the profiler recorded no device time in three "
+        kinds = {}
+        for e in events:
+            kinds[str(e.device_type)] = kinds.get(str(e.device_type), 0) + 1
+        emit({"phase": "profiler_window_empty", "attempt": attempt,
+              "reps": reps, "event_kinds": kinds})
+        reps *= 4
+        time.sleep(1.0)
+    raise RuntimeError("the profiler recorded no device time in five "
                        "windows")
 
 
@@ -366,6 +408,8 @@ def main() -> int:
     attention_kernel_checks(torch, emit_kernel=headline)
     # ------------------------------------------------------ K6 ssd_scan
     ssd_kernel_checks(torch, emit_kernel=headline)
+    # ------------------------------------------------------- K7 moe_gmm
+    gmm_kernel_checks(torch, emit_kernel=headline)
 
     # -------------------------------------------------------- main path
     with open(os.path.join(src, "repro_torch", "data",
@@ -415,14 +459,17 @@ def main() -> int:
     # ------------------------------------- serving Qwen3-0.6B, Mamba2-130M
     serve_counts, serve_bf16 = serve_checks(
         torch, src, SERVE_ARCH, "reference_serve.json", SERVE_REQUESTS,
-        witness=reversed_keys, per_prefill=("flash_attention",),
-        per_decode=("decode_attention",))
+        witness=reversed_keys, per_prefill={"flash_attention": 1},
+        per_decode={"decode_attention": 1})
     path_launches.update(serve_counts)
     mamba_counts, mamba_bf16 = serve_checks(
         torch, src, MAMBA_ARCH, "reference_serve_mamba2.json",
-        MAMBA_REQUESTS, witness=sequential_ssd, per_prefill=("ssd_scan",),
-        per_decode=())
+        MAMBA_REQUESTS, witness=sequential_ssd, per_prefill={"ssd_scan": 1},
+        per_decode={})
     path_launches.update(mamba_counts)
+    # ------------------------------------------------ serving OLMoE-1B-7B
+    olmoe_counts, olmoe_bf16 = olmoe_serve_checks(torch, src)
+    path_launches["moe_gmm"] = olmoe_counts["moe_gmm"]
     for k, v in path_launches.items():
         require(v > 0, f"kernel {k} was never launched on its path")
 
@@ -442,7 +489,9 @@ def main() -> int:
                    "src/repro_torch/kernels/csrc/decode_attention.cu",
                    "src/repro/kernels/decode_attention.py:62"),
                "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
-                            "src/repro/kernels/ssd_scan.py:80")}
+                            "src/repro/kernels/ssd_scan.py:80"),
+               "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
+                           "src/repro/kernels/moe_gmm.py:35")}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k][0],
          "replaces": sources[k][1], "launches": path_launches[k],
@@ -457,6 +506,8 @@ def main() -> int:
         profile_decode(torch, *serve_bf16, label=f"serve {SERVE_ARCH} "
                        "bfloat16")
         profile_decode(torch, *mamba_bf16, label=f"serve {MAMBA_ARCH} "
+                       "bfloat16")
+        profile_decode(torch, *olmoe_bf16, label=f"serve {OLMOE_ARCH} "
                        "bfloat16")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -546,9 +597,13 @@ def attention_kernel_checks(torch, emit_kernel):
     def randn(*shape, dt):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
 
-    B, H, KV, hd = 1, 16, 8, 128
+    hd = 128
+    # Qwen3-0.6B's prefill (16 heads over 8 KV heads) at four lengths,
+    # then OLMoE's (16 over 16, group size 1) at three
+    shapes = [(1, 16, 8, L, "qwen3") for L in (17, 128, 333, 512)]
+    shapes += [(1, 16, 16, L, "olmoe") for L in (17, 333, 512)]
     for dt in (torch.float32, torch.bfloat16):
-        for L in (17, 128, 333, 512):
+        for B, H, KV, L, model in shapes:
             # the model's [B, L, heads, hd] activations, transposed views
             q = randn(B, L, H, hd, dt=dt).transpose(1, 2)
             k = randn(B, L, KV, hd, dt=dt).transpose(1, 2)
@@ -557,7 +612,8 @@ def attention_kernel_checks(torch, emit_kernel):
             torch.cuda.synchronize()
             want = ref.flash_attention_ref(q, k, v, causal=True)
             err, ok = allclose(torch, out, want, tol[dt])
-            require(ok, f"K4 L={L} {dt}: max abs err {err} beyond {tol[dt]}")
+            require(ok, f"K4 {model} L={L} {dt}: max abs err {err} beyond "
+                    f"{tol[dt]}")
             lib_err = allclose(torch, sdpa(q, k, v, is_causal=True,
                                            enable_gqa=True), want, tol[dt])[0]
             calls = (lambda: flash_attention_cuda(q, k, v, True),
@@ -570,7 +626,7 @@ def attention_kernel_checks(torch, emit_kernel):
             n_ops = 4.0 * B * H * hd * L * (L + 1) / 2
             bms, by = bound_ms(n_bytes, n_ops, peak[dt])
             emit({"phase": "kernel", "kernel": "flash_attention",
-                  "case": f"prefill L={L} causal", "dtype": str(dt),
+                  "case": f"{model} prefill L={L} causal", "dtype": str(dt),
                   "q": [B, H, L, hd], "kv": [B, KV, L, hd],
                   "max_abs_err": err, "tol": tol[dt], "ms": ms,
                   "plain_ms": plain, "sdpa_ms": lib_ms,
@@ -578,7 +634,8 @@ def attention_kernel_checks(torch, emit_kernel):
                   "sdpa_max_abs_err": lib_err, "bound_ms": bms,
                   "bound_by": by})
             emit_kernel("flash_attention", max_abs_err=err,
-                        main=(L == 512 and dt == torch.bfloat16), ms=ms,
+                        main=(L == 512 and dt == torch.bfloat16
+                              and model == "qwen3"), ms=ms,
                         plain_ms=plain, bound_ms=bms, bound_by=by,
                         library_ms=lib_ms)
 
@@ -598,20 +655,24 @@ def attention_kernel_checks(torch, emit_kernel):
               "dtype": "torch.bfloat16", "max_abs_err": err})
         emit_kernel("flash_attention", max_abs_err=err)
 
-    B, KV, G, S = 8, 8, 2, 1024
+    B, S = 8, 1024
     lengths = torch.tensor([1, 1024, 17, 512, 333, 1000, 64, 777],
                            dtype=torch.int32, device="cuda")
     n_pos = int(lengths.sum())
     mask = (torch.arange(S, device="cuda")[None]
             < lengths[:, None])[:, None, None, :]
-    for dt in (torch.float32, torch.bfloat16):
+    # Qwen3-0.6B's decode (8 KV heads, group 2), then OLMoE's (16, 1)
+    for dt, (KV, G, model) in itertools.product(
+            (torch.float32, torch.bfloat16),
+            ((8, 2, "qwen3"), (16, 1, "olmoe"))):
         q = randn(B, KV, G, hd, dt=dt)
         kc, vc = randn(B, S, KV, hd, dt=dt), randn(B, S, KV, hd, dt=dt)
         out = decode_attention_cuda(q, kc, vc, lengths)
         torch.cuda.synchronize()
         want = ref.decode_attention_ref(q, kc, vc, lengths)
         err, ok = allclose(torch, out, want, tol[dt])
-        require(ok, f"K5 {dt}: max abs err {err} beyond {tol[dt]}")
+        require(ok, f"K5 {model} {dt}: max abs err {err} beyond "
+                f"{tol[dt]}")
         qs = q.reshape(B, KV * G, 1, hd)
         ks, vs = kc.transpose(1, 2), vc.transpose(1, 2)
 
@@ -628,14 +689,16 @@ def attention_kernel_checks(torch, emit_kernel):
         n_ops = 4.0 * hd * G * KV * n_pos
         bms, by = bound_ms(n_bytes, n_ops, peak[dt])
         emit({"phase": "kernel", "kernel": "decode_attention",
-              "case": "decode B=8, S=1024, lengths 1..1024", "dtype": str(dt),
+              "case": f"{model} decode B=8, S=1024, lengths 1..1024",
+              "dtype": str(dt),
               "q": [B, KV, G, hd], "cache": [B, S, KV, hd],
               "positions": n_pos, "max_abs_err": err, "tol": tol[dt],
               "ms": ms, "plain_ms": plain, "sdpa_ms": lib_ms,
               "event_ms": [ev_ms, ev_plain, ev_lib],
               "sdpa_max_abs_err": lib_err, "bound_ms": bms, "bound_by": by})
         emit_kernel("decode_attention", max_abs_err=err,
-                    main=(dt == torch.bfloat16), ms=ms, plain_ms=plain,
+                    main=(dt == torch.bfloat16 and model == "qwen3"), ms=ms,
+                    plain_ms=plain,
                     bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
@@ -720,12 +783,75 @@ def ssd_kernel_checks(torch, emit_kernel):
                     library_ms=None)
 
 
-def watch_tokens(eng, on_token) -> None:
+def gmm_kernel_checks(torch, emit_kernel):
+    """K7 against its plain version at OLMoE's expert products, x [64, C,
+    2048] @ w [64, 2048, 1024] (wg, wu) and x [64, C, 1024] @ w [64,
+    1024, 2048] (wd), C in {4, 52, 80} (the decode step's capacity and
+    the prefill's at 333 and 512 tokens), plus two ragged shapes off the
+    path (the second not 16-byte aligned: the CUDA-core kernel in
+    bfloat16 too), in float32 (rtol 1e-5 of Σ_d |x·w|) and bfloat16 (one
+    ulp, 2^-7), with torch.bmm timed on the same inputs as a
+    yardstick."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    # float32: sums of up to 2048 products in another order; rounding
+    # works on the partial sums, so an output's error scales with
+    # Σ_d |x·w| (the kernel and cuBLAS part by ~1e-4 where a sum of
+    # magnitude ~1e3 cancels to near 0), and rtol 1e-5 is of that;
+    # bfloat16: both sides round one float32 sum, at most one ulp (2^-7
+    # of the value) apart
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+    peak = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
+    cases = [(64, C, D, F) for C in (4, 52, 80)
+             for D, F in ((2048, 1024), (1024, 2048))]
+    cases += [(3, 17, 200, 72), (2, 5, 37, 19)]
+    for dt in (torch.float32, torch.bfloat16):
+        for E, C, D, F in cases:
+            x = torch.randn((E, C, D), generator=gen, device="cuda").to(dt)
+            w = torch.randn((E, D, F), generator=gen, device="cuda").to(dt)
+            out = moe_gmm_cuda(x, w)
+            torch.cuda.synchronize()
+            want = ref.moe_gmm_ref(x, w)
+            if dt == torch.float32:
+                d = (out - want).abs()
+                err = float(d.max())
+                ok = bool((d <= tol[dt] * ref.moe_gmm_ref(x.abs(),
+                                                          w.abs())).all())
+            else:
+                err, ok = allclose(torch, out, want, tol[dt])
+            label = f"K7 [{E},{C},{D}]@[{E},{D},{F}] {dt}"
+            require(out.dtype == dt and out.shape == (E, C, F),
+                    f"{label}: output {out.dtype} {tuple(out.shape)}")
+            require(ok, f"{label}: max abs err {err} beyond {tol[dt]}")
+            calls = (lambda: moe_gmm_cuda(x, w),
+                     lambda: ref.moe_gmm_ref(x, w),
+                     lambda: torch.bmm(x, w))
+            ms, plain, lib_ms = (device_ms(torch, fn, 10) for fn in calls)
+            elt = x.element_size()
+            n_bytes = (E * C * D + E * D * F + E * C * F) * elt
+            bms, by = bound_ms(n_bytes, 2.0 * E * C * D * F, peak[dt])
+            emit({"phase": "kernel", "kernel": "moe_gmm", "case": label,
+                  "x": [E, C, D], "w": [E, D, F], "dtype": str(dt),
+                  "max_abs_err": err, "tol": tol[dt],
+                  "max_abs_out": float(want.float().abs().max()),
+                  "ms": ms, "plain_ms": plain, "bmm_ms": lib_ms,
+                  "bound_ms": bms, "bound_by": by})
+            emit_kernel("moe_gmm", max_abs_err=err,
+                        main=(dt == torch.bfloat16 and C == 4 and D == 2048
+                              and E == 64),
+                        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                        library_ms=lib_ms)
+
+
+def watch_tokens(eng, on_token, on_call=None) -> None:
     """Call `on_token(req, logits_row)` with the logits row behind every
     token `eng` (a `ServingEngine`) hands a request, prefill and decode,
     by wrapping its model's `prefill` and `decode_step` and its `admit`
-    and `step`; the engine's own code is untouched.  `del eng.admit,
-    eng.step` undoes the last two."""
+    and `step`; the engine's own code is untouched.  `on_call()`, if
+    given, runs right after each model call (a prefill or a decode
+    step), before its tokens are handed out.  `del eng.admit, eng.step`
+    undoes the last two."""
     model, last = eng.model, {}
 
     class Watched:
@@ -735,11 +861,15 @@ def watch_tokens(eng, on_token) -> None:
         def prefill(self, *args):
             out = model.prefill(*args)
             last["logits"] = out[0]
+            if on_call is not None:
+                on_call()
             return out
 
         def decode_step(self, *args):
             out = model.decode_step(*args)
             last["logits"] = out[0]
+            if on_call is not None:
+                on_call()
             return out
 
     eng.model = Watched()
@@ -763,11 +893,12 @@ def watch_tokens(eng, on_token) -> None:
     eng.admit, eng.step = watched_admit, watched_step
 
 
-def serve_run(torch, model, prompts, on_token=None):
+def serve_run(torch, model, prompts, on_token=None, on_call=None):
     """The serving requests through a fresh engine: (requests, stats)
     with the launch counts of this run alone and host-clock times of
     each admission and decode step (each ends in a synchronize);
-    `on_token` as in `watch_tokens`, called outside the timed calls."""
+    `on_token` as in `watch_tokens`, called outside the timed calls,
+    `on_call` inside them."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serving import Request, ServeConfig, ServingEngine
@@ -791,7 +922,7 @@ def serve_run(torch, model, prompts, on_token=None):
     eng.admit, eng.step = timed(admit, "prefill_ms"), timed(step,
                                                             "decode_ms")
     if on_token is not None:            # outside the timers
-        watch_tokens(eng, on_token)
+        watch_tokens(eng, on_token, on_call)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats["base_gb"] = torch.cuda.memory_allocated() / 1e9
@@ -801,6 +932,7 @@ def serve_run(torch, model, prompts, on_token=None):
     torch.cuda.synchronize()
     stats["seconds"] = time.perf_counter() - t0
     del eng.admit, eng.step     # the wrappers close over the engine
+    stats["mstate"] = eng.mstate
     stats["launches"] = ops.launches()
     stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     stats["tokens"] = sum(len(r.out) for r in reqs)
@@ -809,8 +941,8 @@ def serve_run(torch, model, prompts, on_token=None):
 
 def check_serve_run(reqs, stats, n_layers, label, per_prefill, per_decode):
     """Every request done with the length its budget and EOS dictate;
-    n_layers launches of each kernel of `per_prefill` per prefill and of
-    `per_decode` per decode step, and none of any other kernel."""
+    n_layers times `per_prefill[k]` launches of each kernel k per prefill
+    and `per_decode[k]` per decode step, and none of any other kernel."""
     eos, budget = SERVE_CONFIG["eos_id"], SERVE_CONFIG["max_new_tokens"]
     for r in reqs:
         require(r.done, f"{label}: request {r.rid} not done")
@@ -823,8 +955,8 @@ def check_serve_run(reqs, stats, n_layers, label, per_prefill, per_decode):
             require(len(r.out) == cap, f"{label}: request {r.rid} has "
                     f"{len(r.out)} tokens, not {cap}")
     counts = stats["launches"]
-    want = {k: n_layers * (len(stats["prefill_ms"]) * (k in per_prefill)
-                           + len(stats["decode_ms"]) * (k in per_decode))
+    want = {k: n_layers * (len(stats["prefill_ms"]) * per_prefill.get(k, 0)
+                           + len(stats["decode_ms"]) * per_decode.get(k, 0))
             for k in counts}
     require(counts == want, f"{label}: launches {counts} != {want}")
 
@@ -898,6 +1030,26 @@ def sequential_ssd(torch):
         ref.ssd_scan_ref = saved
 
 
+@contextlib.contextmanager
+def reversed_sums(torch):
+    """Within it the plain attention takes its keys in reverse order (as
+    `reversed_keys`) and the plain grouped matmul (`kernels.ref.
+    moe_gmm_ref`) its sums over D in reverse order: the MoE LM's plain
+    versions with their float32 sums taken in another order."""
+    from repro_torch.kernels import ref
+
+    def gmm(x, w):
+        return torch.bmm(x.float().flip(-1), w.float().flip(1)).to(x.dtype)
+
+    saved = ref.moe_gmm_ref
+    ref.moe_gmm_ref = gmm
+    try:
+        with reversed_keys(torch):
+            yield
+    finally:
+        ref.moe_gmm_ref = saved
+
+
 def logit_gap(run, base) -> dict:
     """Max abs and relative L2 distance between two serving runs' logits
     rows, (requests, {(rid, step): row}), at every step they
@@ -921,8 +1073,9 @@ def one_ulp_shift(torch, model, golden) -> float:
     """The float32 witness: the largest relative change (against
     max(|logit|, 1)) of the prefill's logits at the golden's top-5
     indices when every entry of the embedding table moves by one ulp
-    (times 1 + 2^-23).  Printed beside the float32 serve's gap from the
-    golden, whose rtol it shows the model's own sensitivity to."""
+    (times 1 + 2^-23), each prefill from the zero model state.  Printed
+    beside the float32 serve's gap from the golden, whose rtol it shows
+    the model's own sensitivity to."""
     from repro_torch.models import module
     saved = model.embed.detach().clone()
     worst = 0.0
@@ -935,7 +1088,9 @@ def one_ulp_shift(torch, model, golden) -> float:
                 model.embed.copy_(saved * scale)
             cache = module.zeros(model.init_cache_specs(1, prompt.shape[1]),
                                  model.device)
-            rows.append(model.prefill(cache, prompt)[0][0, idx].float())
+            state = module.zeros(model.state_specs(), model.device)
+            rows.append(model.prefill(state, cache, prompt)[0][0,
+                                                               idx].float())
         worst = max(worst, float(((rows[1] - rows[0]).abs()
                                   / rows[0].abs().clamp_min(1.0)).max()))
     with torch.no_grad():
@@ -955,12 +1110,7 @@ def serve_checks(torch, src, arch, golden_name, n_requests, witness,
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.models import build_model, module
     from repro_torch.models.lm import LM
-    with open(os.path.join(src, "repro_torch", "data", golden_name)) as f:
-        golden = json.load(f)
-    require(golden["arch"] == arch and golden["seed"] == SERVE_SEED
-            and golden["serve"] == SERVE_CONFIG
-            and len(golden["requests"]) == n_requests,
-            f"{golden_name} names another configuration")
+    golden = load_golden(src, golden_name, arch, n_requests)
     cfg = configs.get_config(arch)
     t0 = time.perf_counter()
     specs = LM(cfg, device="meta").param_specs()
@@ -971,12 +1121,9 @@ def serve_checks(torch, src, arch, golden_name, n_requests, witness,
     prompts = [r["prompt"] for r in golden["requests"]]
 
     # float32, TF32 off, against the JAX engine's tokens and logits
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg32 = cfg.replace(compute_dtype=torch.float32,
-                        cache_dtype=torch.float32)
-    model = build_model(cfg32)
-    model.load_state_dict(lm_params_from_numpy(cfg32, tree, model.device))
+    model = build_model(float32_config(torch, cfg))
+    model.load_state_dict(lm_params_from_numpy(model.cfg, tree,
+                                               model.device))
     gidx = {r["rid"]: r["top5_indices"] for r in golden["requests"]}
     seen, f32_first = {}, {}
 
@@ -998,20 +1145,11 @@ def serve_checks(torch, src, arch, golden_name, n_requests, witness,
             require(t < len(r.out), f"{label}: request {r.rid} ended at "
                     f"{len(r.out)} tokens, the reference at "
                     f"{len(g['tokens'])}")
-            want = torch.tensor(g["top5_values"][t])
-            got = seen[(r.rid, t)].cpu()
-            rel = float(((got - want).abs()
-                         / want.abs().clamp_min(1.0)).max())
+            rel, parted = top5_check(torch, label, r, g, t, seen)
             worst = max(worst, rel)
             worst_prefill = max(worst_prefill, rel if t == 0 else 0.0)
-            require(rel <= 1e-3, f"{label}: request {r.rid} step {t}: "
-                    f"top-5 logits off by rtol {rel}")
-            if r.out[t] != gtok:
-                margin = g["top2_margin"][t]
-                require(margin < 1e-3 * max(1.0, abs(want[0].item())),
-                        f"{label}: request {r.rid} step {t}: token "
-                        f"{r.out[t]} != {gtok} at top-2 margin {margin}")
-                diverged.append({"rid": r.rid, "step": t, "margin": margin})
+            if parted is not None:
+                diverged.append(parted)
                 break
         else:
             require(len(r.out) == len(g["tokens"]), f"{label}: request "
@@ -1027,23 +1165,76 @@ def serve_checks(torch, src, arch, golden_name, n_requests, witness,
     gc.collect()
     torch.cuda.empty_cache()
 
-    # bfloat16, the production dtypes: through the kernels, timed and
-    # counted; then, each logits row kept, through the kernels again,
-    # through the plain versions, and through the witness
+    # bfloat16, the production dtypes
     model = build_model(cfg)
     model.load_state_dict(lm_params_from_numpy(cfg, tree, model.device))
     del tree
+    counts = bf16_serve_checks(torch, model, prompts, witness, per_prefill,
+                               per_decode, f32_first)
+    return counts, (model, prompts)
+
+
+def load_golden(src, golden_name, arch, n_requests) -> dict:
+    with open(os.path.join(src, "repro_torch", "data", golden_name)) as f:
+        golden = json.load(f)
+    require(golden["arch"] == arch and golden["seed"] == SERVE_SEED
+            and golden["serve"] == SERVE_CONFIG
+            and len(golden["requests"]) == n_requests,
+            f"{golden_name} names another configuration")
+    return golden
+
+
+def float32_config(torch, cfg):
+    """cfg in float32 throughout, with TF32 off for every product."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return cfg.replace(compute_dtype=torch.float32,
+                       cache_dtype=torch.float32)
+
+
+def top5_check(torch, label, r, g, t, seen):
+    """Step t of request r against its golden g: the logits at the
+    golden's top-5 indices to rtol 1e-3 (of max(1, |logit|)), and the
+    token equal unless the golden's top-2 margin is under that
+    tolerance.  Returns (the relative error, a record of the parting or
+    None)."""
+    want = torch.tensor(g["top5_values"][t])
+    got = seen[(r.rid, t)].cpu()
+    rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+    require(rel <= 1e-3, f"{label}: request {r.rid} step {t}: top-5 logits "
+            f"off by rtol {rel}")
+    if r.out[t] == g["tokens"][t]:
+        return rel, None
+    margin = g["top2_margin"][t]
+    require(margin < 1e-3 * max(1.0, abs(want[0].item())),
+            f"{label}: request {r.rid} step {t}: token {r.out[t]} != "
+            f"{g['tokens'][t]} at top-2 margin {margin}")
+    return rel, {"rid": r.rid, "step": t, "margin": margin}
+
+
+def bf16_serve_checks(torch, model, prompts, witness, per_prefill,
+                      per_decode, f32_first, forced=False) -> dict:
+    """The bfloat16 serve: through the kernels, timed and counted; then,
+    each logits row kept, through the kernels again, through the plain
+    versions and through the witness, the kernels held to 1.5x the
+    witness's distance from the plain run (`logit_gap`).  With `forced`
+    (a model whose state is engine-global, as the MoE load EMAs) the
+    three take the same inputs at every call instead (`forced_gaps`).
+    Returns the launch counts of the timed run."""
+    arch = model.cfg.name
+    n_layers = model.cfg.n_layers
     label = f"{arch} bfloat16 serve"
     reqs, stats = serve_run(torch, model, prompts)
-    check_serve_run(reqs, stats, cfg.n_layers, label, per_prefill,
-                    per_decode)
+    check_serve_run(reqs, stats, n_layers, label, per_prefill, per_decode)
     emit({"phase": "serve", "arch": arch, "dtype": "bfloat16",
-          "kernels": "hopper", **serve_summary(stats)})
+          "n_layers": n_layers, "kernels": "hopper", **serve_summary(stats)})
     runs = {}
     for name, impl, order in (
             ("kernels", None, contextlib.nullcontext()),
             ("plain", "ref", contextlib.nullcontext()),
             ("witness", "ref", witness(torch))):
+        if forced and name != "kernels":
+            continue
         rows = {}
 
         def keep(req, row, rows=rows):
@@ -1051,8 +1242,7 @@ def serve_checks(torch, src, arch, golden_name, n_requests, witness,
 
         model.impl = impl
         with order:
-            r_reqs, r_stats = serve_run(torch, model, prompts,
-                                        on_token=keep)
+            r_reqs, r_stats = serve_run(torch, model, prompts, on_token=keep)
         require(all(r.done for r in r_reqs), f"{label}, {name} run: a "
                 "request is not done")
         require(impl is None or not any(r_stats["launches"].values()),
@@ -1064,22 +1254,211 @@ def serve_checks(torch, src, arch, golden_name, n_requests, witness,
     # bfloat16 rounds at every layer, and the layers carry any change of
     # float32 rounding into the logits: the kernels are held to what one
     # such change does to the plain versions, the witness's gap
-    gaps = {name: logit_gap(runs[name], runs["plain"])
-            for name in ("kernels", "witness")}
-    from_f32 = {name: max(float((rows[(rid, 0)] - row).abs().max())
+    if forced:
+        gaps = forced_gaps(torch, model, prompts, witness)
+        record = {}
+    else:
+        gaps = {name: logit_gap(runs[name], runs["plain"])
+                for name in ("kernels", "witness")}
+        record = {
+            "prefill_max_abs_vs_float32": {
+                name: max(float((rows[(rid, 0)] - row).abs().max())
                           for rid, row in f32_first.items())
-                for name, (_, rows) in runs.items()}
+                for name, (_, rows) in runs.items()},
+            "same_tokens_as_plain": {name: [a.out == b.out for a, b in zip(
+                runs[name][0], runs["plain"][0])] for name in gaps}}
     emit({"phase": "serve", "arch": arch, "dtype": "bfloat16",
-          "vs_plain": gaps, "prefill_max_abs_vs_float32": from_f32,
+          "n_layers": n_layers, "vs_plain": gaps, "forced": forced,
           "kernels_within_2e-2": gaps["kernels"]["max_abs"] <= 2e-2,
-          "same_tokens_as_plain": {name: [a.out == b.out for a, b in zip(
-              runs[name][0], runs["plain"][0])] for name in gaps}})
+          **record})
     for key in ("max_abs", "rel_l2"):
         require(gaps["kernels"][key] <= 1.5 * gaps["witness"][key],
                 f"{label}: the kernels' logits are {key} "
                 f"{gaps['kernels'][key]} from the plain versions', more "
                 f"than 1.5x the witness's {gaps['witness'][key]}")
-    counts = {k: stats["launches"][k] for k in per_prefill + per_decode}
+    return {k: stats["launches"][k] for k in {**per_prefill, **per_decode}}
+
+
+def forced_gaps(torch, model, prompts, witness) -> dict:
+    """The serving requests through the plain versions, which choose the
+    tokens; at every call (a prefill or a decode step) the kernels and
+    the witness take copies of the same model state, cache lanes,
+    tokens and positions.  Returns `logit_gap`'s record of each against
+    the plain logits over the rows of active requests at every call:
+    with the state engine-global, a run of its own would carry every
+    earlier call's routing into the later ones."""
+    import numpy as np
+    from repro_torch.models import module
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    eng = ServingEngine(model, ServeConfig(**SERVE_CONFIG))
+    acc = {name: {"max_abs": 0.0, "num": 0.0, "den": 0.0, "rows": 0}
+           for name in ("kernels", "witness")}
+
+    def call(fn, state, cache, tokens, *rest):
+        rows = ([0] if tokens.shape[0] == 1 else
+                [i for i, r in enumerate(eng.active) if r is not None])
+        outs = {}
+        for name, impl, order in (
+                ("kernels", None, contextlib.nullcontext()),
+                ("witness", "ref", witness(torch))):
+            model.impl = impl
+            with order:
+                outs[name] = getattr(model, fn)(
+                    module.tree_map(torch.clone, state),
+                    module.tree_map(torch.clone, cache), tokens,
+                    *rest)[0][rows].float()
+        model.impl = "ref"
+        out = getattr(model, fn)(state, cache, tokens, *rest)
+        base = out[0][rows].float()
+        for name, got in outs.items():
+            a = acc[name]
+            a["max_abs"] = max(a["max_abs"], float((got - base).abs().max()))
+            a["num"] += float(((got - base) ** 2).sum())
+            a["den"] += float((base ** 2).sum())
+            a["rows"] += len(rows)
+        return out
+
+    class Forced:
+        def __getattr__(self, name):
+            return getattr(model, name)
+
+        def prefill(self, *args):
+            return call("prefill", *args)
+
+        def decode_step(self, *args):
+            return call("decode_step", *args)
+
+    eng.model = Forced()
+    reqs = [Request(i, np.asarray(p, np.int32))
+            for i, p in enumerate(prompts)]
+    try:
+        eng.run(reqs)
+    finally:
+        model.impl = None
+    require(all(r.done for r in reqs), "the forced run: a request is not "
+            "done")
+    return {name: {"max_abs": a["max_abs"],
+                   "rel_l2": math.sqrt(a["num"] / a["den"]),
+                   "rows": a["rows"]} for name, a in acc.items()}
+
+
+def olmoe_serve_checks(torch, src):
+    """The OLMoE serving phases.  Float32 at full width and
+    OLMOE_F32_LAYERS layers against the JAX golden, call by call in the
+    engine's order, each call's logits at the golden's top-5 to rtol 1e-3
+    and its tokens equal; the load EMAs are engine-global, so the first
+    call that fails ends the comparison, and passes only at a routing
+    near-tie (the call's smallest gap between a token's K-th and
+    (K+1)-th selection logits under 1e-4 of max(1, |K-th|)) or at a
+    top-2 near-tie of the golden's logits.  With no such call the final
+    load EMAs hold to rtol 1e-5.  Then bfloat16 at full width and all 16
+    layers, weights drawn on the card from SERVE_SEED (`module.draw`):
+    per layer one K4 and three K7 per prefill, one K5 and three K7 per
+    decode step, held to the witness (keys and D reversed)."""
+    from repro_torch import configs
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch.serve import load_model
+    from repro_torch.models import build_model, module
+    from repro_torch.models.lm import LM
+    golden_name = "reference_serve_olmoe.json"
+    golden = load_golden(src, golden_name, OLMOE_ARCH, OLMOE_REQUESTS)
+    cfg = configs.get_config(OLMOE_ARCH)
+    cfg4 = cfg.replace(n_layers=OLMOE_F32_LAYERS)
+    require(golden["config"] == {k: getattr(cfg4, k)
+                                 for k in golden["config"]},
+            f"{golden_name} names another configuration")
+    per_prefill = {"flash_attention": 1, "moe_gmm": 3}
+    per_decode = {"decode_attention": 1, "moe_gmm": 3}
+    prompts = [r["prompt"] for r in golden["requests"]]
+
+    t0 = time.perf_counter()
+    specs = LM(cfg4, device="meta").param_specs()
+    tree = module.init(specs, SERVE_SEED)
+    model = build_model(float32_config(torch, cfg4))
+    model.load_state_dict(lm_params_from_numpy(model.cfg, tree,
+                                               model.device))
+    del tree
+    emit({"phase": "serve_weights", "arch": OLMOE_ARCH, "dtype": "float32",
+          "n_layers": cfg4.n_layers, "params": module.param_count(specs),
+          "seconds": time.perf_counter() - t0})
+    gidx = {r["rid"]: r["top5_indices"] for r in golden["requests"]}
+    seen, at_call, gaps = {}, {}, []
+
+    def gather(req, row):
+        t = len(req.out) - 1
+        at_call[(req.rid, t)] = len(gaps) - 1
+        if t < len(gidx[req.rid]):
+            idx = torch.as_tensor(gidx[req.rid][t], device=row.device)
+            seen[(req.rid, t)] = row.float()[idx]
+
+    def router_gap():
+        gaps.append(model.metrics["router_gap"])
+
+    label = f"{OLMOE_ARCH} float32 serve ({cfg4.n_layers} layers)"
+    reqs, stats = serve_run(torch, model, prompts, on_token=gather,
+                            on_call=router_gap)
+    check_serve_run(reqs, stats, cfg4.n_layers, label, per_prefill,
+                    per_decode)
+    gaps = [float(x) for x in gaps]
+    by_call = {}
+    for r, g in zip(reqs, golden["requests"]):
+        for t, c in enumerate(g["calls"]):
+            by_call.setdefault(c, []).append((r, g, t))
+    worst, diverged = 0.0, []
+    for c in range(golden["n_calls"]):
+        try:
+            parted = []
+            for r, g, t in by_call[c]:
+                require(at_call.get((r.rid, t)) == c, f"{label}: request "
+                        f"{r.rid} step {t} is not in call {c}")
+                rel, p = top5_check(torch, label, r, g, t, seen)
+                worst = max(worst, rel)
+                if p is not None:
+                    parted.append(p)
+            if parted:
+                diverged.append({"call": c, "kind": "top-2 margin",
+                                 "parted": parted})
+                break
+        except RuntimeError as err:
+            require(gaps[c] < 1e-4, f"{err} (router gap {gaps[c]} at "
+                    f"call {c})")
+            diverged.append({"call": c, "kind": "routing",
+                             "router_gap": gaps[c], "failure": str(err)})
+            break
+    ema_err = None
+    if not diverged:
+        require(len(gaps) == golden["n_calls"], f"{label}: {len(gaps)} "
+                f"calls, the reference {golden['n_calls']}")
+        want = torch.tensor(golden["final_load_ema"])
+        got = stats["mstate"]["slot_00"]["load_ema"].float().cpu()
+        ema_err = float(((got - want).abs()
+                         / want.abs().clamp_min(1e-30)).max())
+        require(ema_err <= 1e-5, f"{label}: final load EMAs off by rtol "
+                f"{ema_err}")
+    emit({"phase": "serve", "arch": OLMOE_ARCH, "dtype": "float32",
+          "n_layers": cfg4.n_layers, "vs": golden_name,
+          "max_rel_err_top5": worst, "calls": len(gaps),
+          "diverged_at_near_ties": diverged,
+          "final_load_ema_max_rel_err": ema_err,
+          "min_router_gap": min(gaps),
+          "one_ulp_embed_shift_top5": one_ulp_shift(torch, model, golden),
+          **serve_summary(stats)})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = load_model(cfg, SERVE_SEED, draw="torch")
+    torch.cuda.synchronize()
+    emit({"phase": "serve_weights", "arch": OLMOE_ARCH, "dtype": "bfloat16",
+          "n_layers": cfg.n_layers,
+          "params": module.param_count(model.param_specs()),
+          "draw": "torch.Generator on the card",
+          "seconds": time.perf_counter() - t0,
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    # (the float32 run has 4 layers: no prefill comparison with it)
+    counts = bf16_serve_checks(torch, model, prompts, reversed_sums,
+                               per_prefill, per_decode, {}, forced=True)
     return counts, (model, prompts)
 
 

@@ -1,4 +1,5 @@
-"""Carry a network, an iterate and LM weights across from numpy arrays.
+"""Carry a network, an iterate, LM weights and LM state across from numpy
+arrays.
 
 The port never sees another framework's types: a caller hands over the
 fields as numpy arrays (`np.asarray(...)` of whatever holds them) and
@@ -71,8 +72,10 @@ def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
       [H·hd, d]` (row-major reshapes: x @ wq equals the einsum
       "bld,dhk->blhk" flattened over (h, k));
     * `mixer/q_norm`, `mixer/k_norm`, `ln1`, `ln2` keep their shapes, as
-      do `ffn/wg`, `ffn/wu [d, f]` and `ffn/wd [f, d]` (the `mixer/` and
-      `ffn/` levels are dropped from the names);
+      do `ffn/wg`, `ffn/wu [d, f]` and `ffn/wd [f, d]` of a dense FFN
+      and `ffn/router [d, E]`, `ffn/wg`, `ffn/wu [E, d, f]` and `ffn/wd
+      [E, f, d]` of a MoE FFN (the `mixer/` and `ffn/` levels are
+      dropped from the names);
     * a Mamba2 mixer's leaves keep their names and shapes (`in_z`,
       `in_x`, `in_B`, `in_C`, `in_dt`, `conv_x`, `conv_B`, `conv_C`,
       `conv_bx`, `conv_bB`, `conv_bC`, `A_log`, `D`, `dt_bias`, `norm`,
@@ -81,22 +84,34 @@ def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
       [d, vocab]` carry over as they are.
 
     Tensors come back float32; `load_state_dict` casts each to the
-    dtype the model keeps it in: the compute dtype for the attention
-    and MLP matrices, `embed` / `unembed`, and the Mamba projections,
-    conv weights and conv biases (`models.layers.mamba.
+    dtype the model keeps it in: the compute dtype for the attention,
+    MLP and expert matrices, `embed` / `unembed`, and the Mamba
+    projections, conv weights and conv biases (`models.layers.mamba.
     COMPUTE_DTYPE_LEAVES`); the parameter dtype for the norm scales;
-    float32 for `A_log`, `D` and `dt_bias`."""
-    from .models.lm import LM
+    float32 for the MoE router, `A_log`, `D` and `dt_bias`."""
     dev = resolve_device(device)
+    return _lm_state_dict(cfg, tree, lambda a: _f32(a, dev))
+
+
+def lm_params_from_tensors(cfg, tree: dict) -> dict:
+    """`lm_params_from_numpy` for a tree of tensors (`models.module.draw`
+    draws one on the card): the same layout changes, each tensor kept in
+    its dtype and on its device (layers are views of the stacked
+    leaves)."""
+    return _lm_state_dict(cfg, tree, lambda a: a)
+
+
+def _lm_state_dict(cfg, tree: dict, leaf) -> dict:
+    from .models.lm import LM
     period = cfg.scan_period()
     pattern = cfg.layer_pattern()[:period]
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
     reshape = {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),
                "wo": (H * hd, d)}
-    out = {"embed": _f32(tree["embed"], dev),
-           "final_norm": _f32(tree["final_norm"], dev)}
+    out = {"embed": leaf(tree["embed"]),
+           "final_norm": leaf(tree["final_norm"])}
     if "unembed" in tree:
-        out["unembed"] = _f32(tree["unembed"], dev)
+        out["unembed"] = leaf(tree["unembed"])
     for j in range(len(pattern)):
         slot = tree["blocks"][f"slot_{j:02d}"]
         flat = {"ln1": slot["ln1"], **slot["mixer"]}
@@ -104,13 +119,42 @@ def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
             flat.update(ln2=slot["ln2"], **slot["ffn"])
         for name, stacked in flat.items():
             for g in range(stacked.shape[0]):
-                a = np.asarray(stacked[g])
+                a = stacked[g]
                 if name in reshape:
                     a = a.reshape(reshape[name])
-                out[f"layers.{g * period + j}.{name}"] = _f32(a, dev)
+                out[f"layers.{g * period + j}.{name}"] = leaf(a)
     expected = set(LM(cfg, device="meta").state_dict())
     if set(out) != expected:
         raise ValueError(f"{cfg.name}: the tree does not match the model: "
                          f"missing {sorted(expected - set(out))}, extra "
                          f"{sorted(set(out) - expected)}")
     return out
+
+
+def lm_leaf_dtypes(model):
+    """`(path, spec) -> dtype`: the dtype `model` keeps each leaf of its
+    JAX layout tree in, for `models.module.draw`."""
+    sd = {k: v.dtype for k, v in model.state_dict().items()}
+
+    def dtype_of(path, spec):
+        if path[0] != "blocks":
+            return sd[path[0]]
+        return sd[f"layers.{int(path[1][len('slot_'):])}.{path[-1]}"]
+    return dtype_of
+
+
+def lm_state_from_numpy(cfg, tree: dict, device=None) -> dict:
+    """The model state of the port's `LM` (its `state_specs()` tree, the
+    MoE load EMAs [n_groups, E]) on `device` (None: the card) from the
+    JAX package's `LM.state_specs()` tree as numpy arrays: the same
+    layout, float32."""
+    from .models import module
+    from .models.lm import LM
+    dev = resolve_device(device)
+    specs = LM(cfg, device="meta").state_specs()
+    got = [(p, np.shape(a)) for p, a in module.leaves(tree)]
+    want = [(p, s.shape) for p, s in module.leaves(specs)]
+    if got != want:
+        raise ValueError(f"{cfg.name}: the state tree {got} does not match "
+                         f"the model's {want}")
+    return module.tree_map(lambda a: _f32(a, dev), tree)

@@ -19,7 +19,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("edge_rounds", "simplex_project", "flash_attention",
-           "decode_attention", "ssd_scan")
+           "decode_attention", "ssd_scan", "moe_gmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -97,6 +97,10 @@ _SIGNATURES = {
     },
     "ssd_scan": {
         "ssd_scan_launch": [_INT] + [_PTR] * 8 + [_INT] * 5 + [_PTR],
+    },
+    "moe_gmm": {
+        "moe_gmm_launch": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                           _PTR],
     },
 }
 

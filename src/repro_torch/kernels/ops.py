@@ -4,7 +4,8 @@ K1 `edge_rounds`, K2 `edge_rounds_bucketed` and K3 `simplex_project`
 carry the sparse engine; K4 `flash_attention` and K5 `decode_attention`
 carry the attention LM's prefill and decode; K6 `ssd_scan` carries the
 Mamba2 mixer's prefill (its decode step is plain PyTorch: the JAX package
-has no kernel for it).
+has no kernel for it); K7 `moe_gmm` carries the three expert products of
+the MoE FFN, in prefill and decode alike.
 
 A CUDA tensor goes to the kernel; a CPU tensor goes to the plain
 PyTorch version.  `impl="ref"` forces the plain version on any device
@@ -21,11 +22,13 @@ from . import ref as _ref
 from .decode_attention import decode_attention_cuda
 from .edge_rounds import edge_rounds_bucketed_cuda, edge_rounds_cuda
 from .flash_attention import flash_attention_cuda
+from .moe_gmm import moe_gmm_cuda
 from .simplex_project import simplex_project_cuda
 from .ssd_scan import ssd_scan_cuda
 
 KERNELS = (edge_rounds_cuda, edge_rounds_bucketed_cuda, simplex_project_cuda,
-           flash_attention_cuda, decode_attention_cuda, ssd_scan_cuda)
+           flash_attention_cuda, decode_attention_cuda, ssd_scan_cuda,
+           moe_gmm_cuda)
 
 
 def reset_launches() -> None:
@@ -39,7 +42,8 @@ def launches() -> dict:
             "simplex_project": simplex_project_cuda.launches,
             "flash_attention": flash_attention_cuda.launches,
             "decode_attention": decode_attention_cuda.launches,
-            "ssd_scan": ssd_scan_cuda.launches}
+            "ssd_scan": ssd_scan_cuda.launches,
+            "moe_gmm": moe_gmm_cuda.launches}
 
 
 def _pick(impl: Optional[str], t: torch.Tensor) -> str:
@@ -161,3 +165,11 @@ def ssd_scan(x, dt, A, Bm, Cm, init_state=None, chunk: int = 256,
         return _ref.ssd_scan_ref(x, dt, A, Bm, Cm, init_state=init_state,
                                  chunk=chunk)
     return ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=init_state)
+
+
+def moe_gmm(x, w, impl: Optional[str] = None):
+    """Grouped expert matmul: x [E, C, D] @ w [E, D, F] -> [E, C, F] in
+    x's dtype, float32 sums over D; any E, C, D and F."""
+    if _pick(impl, x) == "ref":
+        return _ref.moe_gmm_ref(x, w)
+    return moe_gmm_cuda(x, w)

@@ -26,6 +26,9 @@ package's `kernels/ref.py` and `core/sgp.py:project_rows`:
   float32, y cast to x's dtype), with the final state.  The JAX
   package's `ssd_scan_ref` is the sequential form; the two agree to
   float32 rounding.
+* `moe_gmm_ref` is the grouped expert matmul of the MoE layer: float32
+  sums over D, one cast to x's dtype, as the Pallas kernel and the JAX
+  package's `moe_gmm_ref`.
 """
 from __future__ import annotations
 
@@ -219,3 +222,9 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, init_state=None, chunk: int = 256):
     from ..models.layers.ssd import ssd_chunked
     return ssd_chunked(x, dt, A, Bm, Cm, chunk=min(chunk, x.shape[1]),
                        init_state=init_state)
+
+
+def moe_gmm_ref(x, w) -> torch.Tensor:
+    """x [E, C, D] @ w [E, D, F] -> [E, C, F]: float32 sums, cast to x's
+    dtype."""
+    return torch.bmm(x.float(), w.float()).to(x.dtype)

@@ -5,17 +5,22 @@
         --reduced --requests 12 --max-new 16 --device cpu
 
 `--arch` takes the families the port runs: the dense attention LMs
-(qwen3-0.6b and the like) and mamba2-130m; `--full` serves at the
-config's full width.  Mamba2 prompts must be at most `ssm_chunk` tokens
-long or a multiple of it (the JAX model path's contract); the drawn
-prompts (4 to 11 tokens) are.
+(qwen3-0.6b and the like), the MoE LMs (olmoe-1b-7b: its router's load
+EMAs are the model state the engine threads through every call),
+mamba2-130m and the hybrid; `--full` serves at the config's full width.
+Mamba2 prompts must be at most `ssm_chunk` tokens long or a multiple of
+it (the JAX model path's contract); the drawn prompts (4 to 11 tokens)
+are.
 
 This is the engine half of the JAX package's `repro.launch.serve`; the
 SGP request router that opens that script (the paper's optimizer
 planning the pod-level dispatch) comes with ROADMAP item P11, the port
-of `serving/router.py`.  Weights are random, drawn with numpy from
-`--seed` (`models.module.init`).  Without `--device` the model runs on
-the card; the CPU only when asked for.
+of `serving/router.py`.  Weights are random, drawn from `--seed`: with
+numpy at the reduced size (`models.module.init`, the stream the tests
+share with the JAX package), with a `torch.Generator` on the model's
+device at full width (`models.module.draw`; OLMoE's 6.9 B values would
+take minutes in numpy).  Without `--device` the model runs on the card;
+the CPU only when asked for.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch import configs
-from repro_torch.convert import lm_params_from_numpy
+from repro_torch.convert import (lm_leaf_dtypes, lm_params_from_numpy,
+                                 lm_params_from_tensors)
 from repro_torch.models import build_model, module
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
@@ -42,11 +48,24 @@ def make_requests(n: int, vocab: int, seed: int, lo: int = 4,
             for i in range(n)]
 
 
-def load_model(cfg, seed: int, device=None, impl=None):
-    """The port's LM on `device` with weights drawn from `seed`."""
+def load_model(cfg, seed: int, device=None, impl=None,
+               draw: str = "numpy"):
+    """The port's LM on `device` with weights drawn from `seed`: with
+    numpy (`draw="numpy"`, `models.module.init`) or with a
+    `torch.Generator` on the model's device, each leaf in the dtype the
+    model keeps it in (`draw="torch"`, `models.module.draw`)."""
     model = build_model(cfg, device=device, impl=impl)
-    tree = module.init(model.param_specs(), seed)
-    model.load_state_dict(lm_params_from_numpy(cfg, tree, model.device))
+    if draw == "numpy":
+        tree = module.init(model.param_specs(), seed)
+        sd = lm_params_from_numpy(cfg, tree, model.device)
+    elif draw == "torch":
+        gen = torch.Generator(device=model.device).manual_seed(seed)
+        tree = module.draw(model.param_specs(), gen, model.device,
+                           lm_leaf_dtypes(model))
+        sd = lm_params_from_tensors(cfg, tree)
+    else:
+        raise ValueError(f"unknown draw {draw!r}")
+    model.load_state_dict(sd)
     return model
 
 
@@ -69,7 +88,8 @@ def main(argv=None):
 
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
-    model = load_model(cfg, args.seed, args.device)
+    model = load_model(cfg, args.seed, args.device,
+                       draw="numpy" if args.reduced else "torch")
     engine = ServingEngine(model, ServeConfig(max_slots=args.slots,
                                               max_len=args.max_len,
                                               max_new_tokens=args.max_new))

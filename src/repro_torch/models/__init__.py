@@ -1,5 +1,5 @@
-"""Model zoo of the port: the decoder LM, dense attention and Mamba2
-(SSM) families so far."""
+"""Model zoo of the port: the decoder LM, dense attention, MoE, Mamba2
+(SSM) and hybrid families so far."""
 from .config import ModelConfig, reduced
 from .lm import LM
 from . import module

@@ -1,28 +1,38 @@
-"""Decoder language model: the dense attention family and the Mamba2
-(SSM) family (PyTorch port of the JAX package's `models/lm.py`).
+"""Decoder language model: the dense attention, MoE, Mamba2 (SSM) and
+hybrid families (PyTorch port of the JAX package's `models/lm.py`).
 
-    LM(cfg).param_specs()                      -> spec tree (JAX layout)
-    LM(cfg).init_cache_specs(batch, max_len)   -> cache spec tree
-    LM(cfg).prefill(cache, tokens)             -> (logits, cache)
-    LM(cfg).decode_step(cache, tokens, pos)    -> (logits, cache)
+    LM(cfg).param_specs()                          -> spec tree (JAX layout)
+    LM(cfg).state_specs()                          -> model-state spec tree
+    LM(cfg).init_cache_specs(batch, max_len)       -> cache spec tree
+    LM(cfg).prefill(state, cache, tokens)          -> (logits, state, cache)
+    LM(cfg).decode_step(state, cache, tokens, pos) -> (logits, state, cache)
 
 Weights live in the module (load them with `convert.lm_params_from_numpy`
-and `load_state_dict`): the matrices (and the Mamba conv weights and
-biases) in the compute dtype (cast once at load, which gives the numbers
-of the JAX package's cast at each use), the norm scales and Mamba's
-A_log, D and dt_bias in the parameter dtype.  Layers are a plain
-`nn.ModuleList`, no layer stacking.  The cache keeps the JAX layout,
-n_layers / period groups stacked first: an attention slot holds
-{"k", "v": [G, B, S_max, KV, hd]}, a Mamba slot {"ssm": [G, B, H, N, P]
-float32, "conv_x" / "conv_B" / "conv_C": [G, B, 3, width] in the cache
-dtype}; prefill and decode write it in place, and a prefill overwrites
-every leaf of the lanes it is given.  The LM has no mutable state, so
-the JAX package's `state` argument is dropped.  MoE FFNs, M-RoPE and the
-encoder-decoder family raise NotImplementedError (ROADMAP queue 1).
+and `load_state_dict`): the matrices (the Mamba conv weights and biases
+and the MoE experts too) in the compute dtype (cast once at load, which
+gives the numbers of the JAX package's cast at each use), the norm
+scales and Mamba's A_log, D and dt_bias in the parameter dtype, the MoE
+router in float32.  Layers are a plain `nn.ModuleList`, no layer
+stacking.  The cache keeps the JAX layout, n_layers / period groups
+stacked first: an attention slot holds {"k", "v": [G, B, S_max, KV,
+hd]}, a Mamba slot {"ssm": [G, B, H, N, P] float32, "conv_x" / "conv_B"
+/ "conv_C": [G, B, 3, width] in the cache dtype}; prefill and decode
+write it in place, and a prefill overwrites every leaf of the lanes it
+is given.
+
+The model state is the JAX package's: the MoE router's load EMAs, one
+{"load_ema": [G, E] float32} per MoE slot (`state_specs()`, no batch
+axis: engine-global).  prefill and decode_step take it and return the
+new state as new tensors; a model without MoE layers has the empty
+state {}.  After each call `metrics` holds the MoE layers'
+moe_imbalance and moe_drop_frac (means over the layers) and router_gap
+(their minimum), as 0-dim tensors.  M-RoPE and the encoder-decoder
+family raise NotImplementedError (ROADMAP queue 1).
 
 `impl` steers every kernel of the model (K4 and K5 in attention, K6 in
-the Mamba prefill): None takes the Hopper kernels on the card and the
-plain versions on the CPU; "ref" forces the plain versions.
+the Mamba prefill, K7 in the MoE FFN): None takes the Hopper kernels on
+the card and the plain versions on the CPU; "ref" forces the plain
+versions.
 """
 from __future__ import annotations
 
@@ -36,13 +46,9 @@ from .module import ParamSpec
 from .layers import attention as attn
 from .layers import mamba as mb
 from .layers import mlp as mlpl
+from .layers import moe as moel
 from .layers.norms import rmsnorm, rmsnorm_spec
 from .layers.rope import rope_angles
-
-_UNPORTED = {
-    "moe": "the MoE FFN comes with the OLMoE serving slice "
-           "(ROADMAP queue 1, P13c)",
-}
 
 
 def _stack(specs: dict, g: int) -> dict:
@@ -57,10 +63,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family == "encdec":
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder LM "
                                   "comes later (ROADMAP queue 1, P13d)")
-    for mixer, ffn in cfg.layer_pattern():
-        for kind in (mixer, ffn):
-            if kind in _UNPORTED:
-                raise NotImplementedError(f"{cfg.name}: {_UNPORTED[kind]}")
     if cfg.mrope_sections:
         raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the VLM "
                                   "slice (ROADMAP queue 1, P13d)")
@@ -111,8 +113,16 @@ class LM(nn.Module):
                 p["wg"] = _param((d, cfg.d_ff), cd, dev)
                 p["wu"] = _param((d, cfg.d_ff), cd, dev)
                 p["wd"] = _param((cfg.d_ff, d), cd, dev)
+            elif ffn == "moe":
+                E, f = cfg.n_experts, cfg.d_ff_expert
+                p["ln2"] = _param((d,), pd, dev)
+                p["router"] = _param((d, E), torch.float32, dev)
+                p["wg"] = _param((E, d, f), cd, dev)
+                p["wu"] = _param((E, d, f), cd, dev)
+                p["wd"] = _param((E, f, d), cd, dev)
             layers.append(nn.ParameterDict(p))
         self.layers = nn.ModuleList(layers)
+        self.metrics: dict = {}
 
     @property
     def device(self) -> torch.device:
@@ -126,7 +136,8 @@ class LM(nn.Module):
                        else mb.mamba_specs(cfg))}
         if ffn != "none":
             d["ln2"] = rmsnorm_spec(cfg.d_model)
-            d["ffn"] = mlpl.mlp_specs(cfg)
+            d["ffn"] = (moel.moe_specs(cfg) if ffn == "moe"
+                        else mlpl.mlp_specs(cfg))
         return d
 
     def param_specs(self) -> dict:
@@ -147,6 +158,13 @@ class LM(nn.Module):
                 (cfg.d_model, cfg.vocab), ("embed_tbl", "vocab"),
                 cfg.param_dtype, init="fan_in")
         return specs
+
+    def state_specs(self) -> dict:
+        """Mutable model state: the MoE router load EMAs (the paper's
+        G_e), one [n_groups, E] leaf per MoE slot."""
+        return {f"slot_{j:02d}": _stack(moel.moe_state_specs(self.cfg),
+                                        self.n_groups)
+                for j, (_, ffn) in enumerate(self.pattern) if ffn == "moe"}
 
     def init_cache_specs(self, batch: int, max_len: int) -> dict:
         cfg = self.cfg
@@ -175,13 +193,16 @@ class LM(nn.Module):
         w = self.embed.t() if self.cfg.tie_embeddings else self.unembed
         return x @ w
 
-    def _blocks(self, x, cos, sin, cache, pos=None):
+    def _blocks(self, x, cos, sin, state, cache, pos=None):
         """All layers; prefill when pos is None, else one decode step.
-        Each layer's cache leaves are written in place."""
+        Each layer's cache leaves are written in place; returns x and the
+        new model state, and sets `metrics`."""
         cfg = self.cfg
+        new_ema, mets = {}, []
         for i, p in enumerate(self.layers):
             g, j = divmod(i, self.period)
-            c = {k: v[g] for k, v in cache[f"slot_{j:02d}"].items()}
+            key = f"slot_{j:02d}"
+            c = {k: v[g] for k, v in cache[key].items()}
             h = rmsnorm(p["ln1"], x, cfg.norm_eps)
             if self.pattern[j][0] == "mamba":
                 if pos is None:
@@ -204,30 +225,46 @@ class LM(nn.Module):
                     o = attn.decode_attention(q, c["k"], c["v"], pos + 1,
                                               impl=self.impl)
                 x = x + attn.out_proj(p, o)
-            if "wg" in p:
+            if "router" in p:
+                h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+                st = {"load_ema": state[key]["load_ema"][g]}
+                out, st, met = moel.moe(p, st, h, cfg, impl=self.impl)
+                new_ema.setdefault(key, []).append(st["load_ema"])
+                mets.append(met)
+                x = x + out
+            elif "wg" in p:
                 x = x + mlpl.mlp(p, rmsnorm(p["ln2"], x, cfg.norm_eps))
-        return x
+        self.metrics = {}
+        if mets:
+            for name in ("moe_imbalance", "moe_drop_frac"):
+                self.metrics[name] = torch.stack(
+                    [m[name] for m in mets]).mean()
+            self.metrics["router_gap"] = torch.stack(
+                [m["router_gap"] for m in mets]).min()
+        return x, {key: {"load_ema": torch.stack(v)}
+                   for key, v in new_ema.items()}
 
     @torch.no_grad()
-    def prefill(self, cache, tokens):
+    def prefill(self, state, cache, tokens):
         """tokens [B, L] (L <= the cache's max_len) -> (last-position
-        logits [B, vocab], cache with positions [0, L) written)."""
+        logits [B, vocab], new state, cache with positions [0, L)
+        written)."""
         cfg = self.cfg
         B, L = tokens.shape
         x = self.embed[tokens]
         positions = torch.arange(L, device=tokens.device)[None].expand(B, L)
         cos, sin = rope_angles(cfg.hd, cfg.rope_theta, positions)
-        x = self._blocks(x, cos, sin, cache)
+        x, state = self._blocks(x, cos, sin, state, cache)
         x = rmsnorm(self.final_norm, x[:, -1:], cfg.norm_eps)
-        return self._logits(x)[:, 0], cache
+        return self._logits(x)[:, 0], state, cache
 
     @torch.no_grad()
-    def decode_step(self, cache, tokens, pos):
-        """tokens [B, 1], pos [B] int32 -> (logits [B, vocab], cache with
-        position pos[b] of row b written)."""
+    def decode_step(self, state, cache, tokens, pos):
+        """tokens [B, 1], pos [B] int32 -> (logits [B, vocab], new state,
+        cache with position pos[b] of row b written)."""
         cfg = self.cfg
         x = self.embed[tokens]
         cos, sin = rope_angles(cfg.hd, cfg.rope_theta, pos[:, None])
-        x = self._blocks(x, cos, sin, cache, pos)
+        x, state = self._blocks(x, cos, sin, state, cache, pos)
         x = rmsnorm(self.final_norm, x, cfg.norm_eps)
-        return self._logits(x)[:, 0], cache
+        return self._logits(x)[:, 0], state, cache

@@ -7,6 +7,11 @@ sorted, as `jax.tree.flatten` orders them) from one
 `np.random.RandomState(seed)`, with the JAX package's four init rules.
 jax.random cannot be replayed in torch; numpy arrays can be handed to
 both packages, which is how the tests and the golden run share weights.
+`draw(specs, generator, device)` applies the same rules with an explicit
+`torch.Generator`, each leaf drawn on the device in the dtype its model
+keeps it in: the way to random weights at sizes where a numpy draw of
+float64 on the host takes minutes and tens of GB.  It is not the numpy
+stream, and nothing compares it to the JAX package.
 """
 from __future__ import annotations
 
@@ -46,6 +51,15 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_map2(fn, tree, *rest):
+    """fn over the matching leaves of trees of one structure (the keys of
+    the first)."""
+    if isinstance(tree, dict):
+        return {k: tree_map2(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
               torch.int32: np.int32, torch.int64: np.int64}
 
@@ -66,12 +80,7 @@ def init(specs, seed: int) -> Any:
             return np.zeros(s.shape, dt)
         if s.init == "ones":
             return np.ones(s.shape, dt)
-        if s.init == "normal":
-            std = s.scale
-        elif s.init == "fan_in":
-            std = s.scale / np.sqrt(max(s.shape[0] if s.shape else 1, 1))
-        else:
-            raise ValueError(s.init)
+        std = _std(s)
         return (std * rng.standard_normal(s.shape)).astype(dt)
 
     def walk(tree):     # dict keys sorted: jax.tree's flatten order
@@ -80,6 +89,38 @@ def init(specs, seed: int) -> Any:
         return draw(tree)
 
     return walk(specs)
+
+
+def _std(s: ParamSpec) -> float:
+    if s.init == "normal":
+        return s.scale
+    if s.init == "fan_in":
+        return s.scale / float(np.sqrt(max(s.shape[0] if s.shape else 1, 1)))
+    raise ValueError(s.init)
+
+
+def draw(specs, generator: torch.Generator, device=None,
+         dtype_of=None) -> Any:
+    """The spec tree drawn as tensors on `device` from `generator`, leaf
+    by leaf in flatten order, with `init`'s four rules.  A leaf takes the
+    dtype `dtype_of(path, spec)` (default: its spec's) and is drawn
+    straight in it (`Tensor.normal_`)."""
+    def one(path, s: ParamSpec):
+        dt = s.dtype if dtype_of is None else dtype_of(path, s)
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=dt, device=device)
+        if s.init == "ones":
+            return torch.ones(s.shape, dtype=dt, device=device)
+        return torch.empty(s.shape, dtype=dt, device=device).normal_(
+            0.0, _std(s), generator=generator)
+
+    out: dict = {}
+    for path, s in leaves(specs):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = one(path, s)
+    return out
 
 
 def zeros(specs, device=None) -> Any:

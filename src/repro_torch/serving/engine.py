@@ -13,20 +13,27 @@ the JAX package's `serving/engine.py`, with its semantics):
   budget, or when its position reaches `max_len - 1`;
 * tokens are the greedy argmax, ties to the first index.
 
-The model contract: `init_cache_specs(batch, max_len)`, `prefill(cache,
-tokens [1, L]) -> (logits [1, V], cache)` and `decode_step(cache,
-tokens [B, 1], pos [B]) -> (logits [B, V], cache)`, where prefill and
-decode write the cache tensors they are given in place.  Admission
-hands prefill views of the slot's lane, `c[:, slot:slot + 1]` of every
-cache leaf [layers, slots, ...], so it writes back exactly that lane:
-the KV cache of an attention layer, and the SSM state [layers, slots,
-H, N, P] and the three conv tails [layers, slots, 3, width] of a Mamba2
-layer, which its prefill overwrites whole (the lock-step decode leaves
-garbage in idle lanes).  `pos` matters to attention only; the
-`max_len - 1` stop rule holds for every model.  The JAX engine's
-per-slot lanes of a mutable model state matter only for models with
-such state (MoE load EMAs); they come with the MoE slice (ROADMAP
-queue 1).
+The model contract: `init_cache_specs(batch, max_len)`, `state_specs()`,
+`prefill(state, cache, tokens [1, L]) -> (logits [1, V], state, cache)`
+and `decode_step(state, cache, tokens [B, 1], pos [B]) -> (logits
+[B, V], state, cache)`, where prefill and decode write the cache
+tensors they are given in place and return the model state anew.
+Admission hands prefill views of the slot's lane, `c[:, slot:slot + 1]`
+of every cache leaf [layers, slots, ...], so it writes back exactly
+that lane: the KV cache of an attention layer, and the SSM state
+[layers, slots, H, N, P] and the three conv tails [layers, slots, 3,
+width] of a Mamba2 layer, which its prefill overwrites whole (the
+lock-step decode leaves garbage in idle lanes).  `pos` matters to
+attention only; the `max_len - 1` stop rule holds for every model.
+
+The model state, as in the JAX engine: a leaf whose spec names a
+"batch" axis holds per-sequence state, and admission hands prefill
+that slot's lane of it and writes the lane back; any other leaf is
+engine-global and prefill's new value replaces it whole.  The MoE load
+EMAs are global, so every prefill and every decode step (idle lanes
+included, fed their last token at an unadvanced position) moves the
+routing of every later call.  `mstate=None` starts from zeros of
+`state_specs()` (the empty state for a model without one).
 """
 from __future__ import annotations
 
@@ -58,11 +65,39 @@ class Request:
     done: bool = False
 
 
+def _state_lane_axes(model, mstate):
+    """Per-leaf slot-lane axis of the model-state tree (-1: global), from
+    the "batch" axis of its `state_specs()`; None (no slicing anywhere)
+    when the model is stateless, has no specs, or `mstate` does not have
+    their structure (a caller's own state opts out of lane handling)."""
+    if not mstate or not hasattr(model, "state_specs"):
+        return None
+    specs = model.state_specs()
+    if not specs or [p for p, _ in module.leaves(specs)] != [
+            p for p, _ in module.leaves(mstate)]:
+        return None
+    return module.tree_map(
+        lambda s: s.axes.index("batch") if "batch" in s.axes else -1, specs)
+
+
+def _lane_index(ndim: int, ax: int, slot: int) -> tuple:
+    idx = [slice(None)] * ndim
+    idx[ax] = slice(slot, slot + 1)
+    return tuple(idx)
+
+
 class ServingEngine:
-    def __init__(self, model, cfg: ServeConfig):
+    def __init__(self, model, cfg: ServeConfig,
+                 mstate: Optional[dict] = None):
         self.model = model
         self.cfg = cfg
         self.device = model.device
+        if mstate is None:
+            specs = (model.state_specs() if hasattr(model, "state_specs")
+                     else {})
+            mstate = module.zeros(specs, self.device)
+        self.mstate = mstate
+        self._state_lane = _state_lane_axes(model, mstate)
         self.cache = module.zeros(
             model.init_cache_specs(cfg.max_slots, cfg.max_len), self.device)
         self.pos = np.zeros((cfg.max_slots,), np.int32)
@@ -83,7 +118,25 @@ class ServingEngine:
         lane = module.tree_map(lambda c: c[:, slot:slot + 1], self.cache)
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int64)[None],
                                  device=self.device)
-        logits, _ = self.model.prefill(lane, prompt)
+        # lane leaves of the state see only their own lane; global leaves
+        # (the MoE load EMAs) pass whole and come back whole
+        ms = self.mstate
+        if self._state_lane is not None:
+            ms = module.tree_map2(
+                lambda c, ax: c if ax < 0 else c[_lane_index(c.ndim, ax,
+                                                             slot)],
+                self.mstate, self._state_lane)
+        logits, ms_new, _ = self.model.prefill(ms, lane, prompt)
+        if self._state_lane is None:
+            self.mstate = ms_new
+        else:
+            def write(c, new, ax):
+                if ax < 0:
+                    return new
+                c[_lane_index(c.ndim, ax, slot)] = new
+                return c
+            self.mstate = module.tree_map2(write, self.mstate, ms_new,
+                                           self._state_lane)
         tok = int(torch.argmax(logits[0]))
         req.out.append(tok)
         if tok == self.cfg.eos_id or self.cfg.max_new_tokens <= 0:
@@ -101,7 +154,8 @@ class ServingEngine:
             return False
         toks = torch.as_tensor(self.last_tok[:, None], device=self.device)
         pos = torch.as_tensor(self.pos, device=self.device)
-        logits, self.cache = self.model.decode_step(self.cache, toks, pos)
+        logits, self.mstate, self.cache = self.model.decode_step(
+            self.mstate, self.cache, toks, pos)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         for i, req in enumerate(self.active):
             if req is None:

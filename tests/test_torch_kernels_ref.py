@@ -435,6 +435,8 @@ def test_port_imports_without_jax():
         "import repro_torch.models, repro_torch.configs\n"
         "import repro_torch.models.layers.mamba\n"
         "import repro_torch.models.layers.ssd\n"
+        "import repro_torch.models.layers.moe, repro_torch.core.moe_bridge\n"
+        "import repro_torch.kernels.moe_gmm\n"
         "bad = [m for m in sys.modules if m == 'repro' or "
         "m.startswith('repro.') or m.startswith('jax')]\n"
         "assert not [m for m in bad if sys.modules[m] is not None], bad\n"

@@ -68,7 +68,7 @@ def test_prefill_and_decode_match_reference(pair):
     for slot in range(SLOTS):
         p = rng.randint(2, cfg.vocab, (1, PROMPT))
         lane = module.tree_map(lambda c: c[:, slot:slot + 1], tc)
-        tlog, _ = model.prefill(lane, torch.as_tensor(p))
+        tlog, _, _ = model.prefill({}, lane, torch.as_tensor(p))
         jlog, _, jlane = j_prefill(jp, {}, zeros, jnp.asarray(p))
         jlanes.append(jlane)
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **LOGITS)
@@ -79,8 +79,8 @@ def test_prefill_and_decode_match_reference(pair):
     pos = np.array([PROMPT, PROMPT - 3], np.int32)
     for _ in range(3):
         tk = rng.randint(2, cfg.vocab, (SLOTS, 1))
-        tlog, tc = model.decode_step(tc, torch.as_tensor(tk),
-                                     torch.as_tensor(pos))
+        tlog, _, tc = model.decode_step({}, tc, torch.as_tensor(tk),
+                                        torch.as_tensor(pos))
         jlog, _, jc = j_decode(jp, {}, jc, jnp.asarray(tk), jnp.asarray(pos))
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **LOGITS)
         pos = pos + 1
@@ -158,12 +158,37 @@ def test_configs_copy_over(arch):
                 assert a == b, (arch, get, f.name)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "olmoe-1b-7b",
-                                  "jamba-v0.1-52b", "whisper-base",
-                                  "qwen2-vl-7b"])
+@pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-7b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(configs.get_reduced(arch), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "olmoe-1b-7b",
+                                  "jamba-v0.1-52b"])
+def test_moe_families_build(arch):
+    """The MoE FFN is ported: the MoE and hybrid configs build at full
+    width (on the meta device) with the parameter count and the state
+    specs of the JAX package, the router float32 and the experts in the
+    compute dtype."""
+    cfg = configs.get_config(arch)
+    model = build_model(cfg, device="meta")
+    jl = JLM(jconfigs.get_config(arch))
+    n = sum(t.numel() for t in model.state_dict().values())
+    assert n == module.param_count(model.param_specs()) \
+        == jmodule.param_count(jl.param_specs())
+    moe = [p for p in model.layers if "router" in p]
+    assert len(moe) == sum(f == "moe" for _, f in cfg.layer_pattern()) > 0
+    assert all(p["router"].dtype == torch.float32
+               and p["wg"].dtype == cfg.compute_dtype for p in moe)
+    jstate = jl.state_specs()
+    for (path, s), (jpath, js) in zip(
+            module.leaves(model.state_specs()),
+            jax.tree_util.tree_flatten_with_path(
+                jstate, is_leaf=lambda x: isinstance(x,
+                                                     jmodule.ParamSpec))[0]):
+        assert path == tuple(getattr(k, "key", k) for k in jpath)
+        assert (s.shape, s.axes, s.init) == (js.shape, js.axes, js.init)
 
 
 @pytest.mark.parametrize("get", ["get_reduced", "get_config"])

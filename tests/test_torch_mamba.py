@@ -237,7 +237,7 @@ def test_lm_prefill_and_decode_match_reference(pair):
     for slot in range(SLOTS):
         prompt = rng.randint(2, CFG.vocab, (1, PROMPT))
         lane = module.tree_map(lambda c: c[:, slot:slot + 1], tc)
-        tlog, _ = model.prefill(lane, torch.as_tensor(prompt))
+        tlog, _, _ = model.prefill({}, lane, torch.as_tensor(prompt))
         jlog, _, jlane = j_prefill(jp, {}, _j_zeros(1), jnp.asarray(prompt))
         jlanes.append(jlane)
         _close(tlog, jlog)
@@ -246,8 +246,8 @@ def test_lm_prefill_and_decode_match_reference(pair):
     pos = np.array([PROMPT, PROMPT], np.int32)
     for _ in range(3):
         tk = rng.randint(2, CFG.vocab, (SLOTS, 1))
-        tlog, tc = model.decode_step(tc, torch.as_tensor(tk),
-                                     torch.as_tensor(pos))
+        tlog, _, tc = model.decode_step({}, tc, torch.as_tensor(tk),
+                                        torch.as_tensor(pos))
         jlog, _, jc = j_decode(jp, {}, jc, jnp.asarray(tk), jnp.asarray(pos))
         _close(tlog, jlog)
         pos = pos + 1
@@ -341,7 +341,7 @@ def test_reused_slot_serves_as_fresh(pair):
     eng.step()                        # lane 0 decodes garbage while idle
     assert eng.admit(reused) and eng.active[0] is reused
     fresh = _cache_zeros(model, 1)
-    model.prefill(fresh, torch.as_tensor(c[None].astype(np.int64)))
+    model.prefill({}, fresh, torch.as_tensor(c[None].astype(np.int64)))
     for k, v in eng.cache["slot_00"].items():
         assert torch.equal(v[:, 0:1], fresh["slot_00"][k]), k
     eng.run([])
@@ -485,7 +485,7 @@ def float32_witness():
         prompt = torch.as_tensor([r["prompt"]])
         cache = module.zeros(model.init_cache_specs(1, prompt.shape[1]),
                              "cpu")
-        got = model.prefill(cache, prompt)[0][0, r["top5_indices"][0]]
+        got = model.prefill({}, cache, prompt)[0][0, r["top5_indices"][0]]
         want = torch.tensor(r["top5_values"][0])
         gap = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
         one = smoke.one_ulp_shift(torch, model, {"requests": [r]})

@@ -129,15 +129,15 @@ class TinyLM:
     def _onehot(self, nxt):
         return torch.nn.functional.one_hot(nxt, self.vocab).float()
 
-    def prefill(self, cache, prompt):
+    def prefill(self, state, cache, prompt):
         cache["acc"][0, :, 0] = prompt.sum()
         nxt = (prompt[:, -1] + cache["acc"][0, :, 0]) % self.vocab
-        return self._onehot(nxt), cache
+        return self._onehot(nxt), state, cache
 
-    def decode_step(self, cache, toks, pos):
+    def decode_step(self, state, cache, toks, pos):
         cache["acc"][0, :, 0] += toks[:, 0]
         nxt = (toks[:, 0] + cache["acc"][0, :, 0]) % self.vocab
-        return self._onehot(nxt), cache
+        return self._onehot(nxt), state, cache
 
 
 def _tiny_engine(slots=3, max_new=6, eos=99, vocab=13, max_len=32):

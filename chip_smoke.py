@@ -17,8 +17,11 @@
    333, 512}, and on OLMoE's, k, v [1, 16, L, 128], L in {17, 333, 512},
    and `decode_attention` (K5) on their decode steps, q [8, 8, 2, 128]
    against [8, 1024, 8, 128] caches and q [8, 16, 1, 128] against
-   [8, 1024, 16, 128], with ragged lengths from 1 to 1024, all in
-   float32 (rtol = atol = 2e-4) and bfloat16 (2e-2); `ssd_scan`
+   [8, 1024, 16, 128], with ragged lengths from 1 to 1024, every
+   length 1, every length 1024, and one request (B = 1) of length 1024
+   (and off the path at hd 50, G = 3), all in float32 (rtol = atol =
+   2e-4) and bfloat16 (2e-2), then both captured in one CUDA graph and
+   replayed on new inputs and lengths (2e-2); `ssd_scan`
    (K6) on Mamba2-130M's prefill, x [B, L, 24, 64], dt [B, L, 24], A
    [24], B/C [B, L, 128], L in {17, 128, 256, 512} at B = 1 and L = 256
    at B = 4, float32 and bfloat16, plus one float32 case from an initial
@@ -31,7 +34,7 @@
    torch.bmm, on the same inputs as a yardstick (no PyTorch call
    computes K6's function); K4–K7 are timed by the profiler's device
    time (for K4 and K5 CUDA events around the run are printed beside
-   it), the others by CUDA events.
+   it, and the kernel's ratio to SDPA), the others by CUDA events.
 3. Drives the sparse main path, Algorithm 1 for 20 iterations: sw_1000
    padded (K1 + K3) and ba_10000 bucketed (K2 + K3).  The launch counts
    must be 2 + 5·n and 2·n for the n iterations executed, every cost
@@ -123,6 +126,10 @@ SSD_KERNEL_CHUNK = 64
 OLMOE_ARCH = "olmoe-1b-7b"
 OLMOE_REQUESTS = 12
 OLMOE_F32_LAYERS = 4
+# the names of the kernels under src/repro_torch/kernels/csrc, as the
+# profiler reports them after "(anonymous namespace)::"
+PORT_KERNEL_PREFIXES = ("edge_rounds", "simplex_project", "flash_fwd",
+                        "decode_split", "ssd_scan", "gmm_")
 
 
 T0 = time.perf_counter()
@@ -565,14 +572,19 @@ def bisection_halvings(torch, ref, phi, delta, M, perm, n_iter=60):
 
 
 def ptxas_summary(report: str) -> dict:
-    """Most registers of any kernel of one source, and its spill lines."""
+    """Most registers of any kernel of one source, and its spill lines,
+    each after the (mangled) name of the function it is about."""
     regs = [int(w) for ln in report.splitlines() if "registers" in ln
             for w, nxt in zip(ln.split(), ln.split()[1:])
             if nxt.startswith("registers") and w.isdigit()]
-    spills = [ln.strip() for ln in report.splitlines()
-              if "spill" in ln and not ln.strip().startswith(
-                  "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
-                  "spill loads")]
+    spills, fn = [], ""
+    for ln in report.splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for")[-1].strip()
+        elif "spill" in ln and not ln.strip().startswith(
+                "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                "spill loads"):
+            spills.append(f"{fn}: {ln.strip()}")
     return {"kernels": len(regs), "max_registers": max(regs, default=0),
             "spills": spills[:8]}
 
@@ -630,6 +642,7 @@ def attention_kernel_checks(torch, emit_kernel):
                   "q": [B, H, L, hd], "kv": [B, KV, L, hd],
                   "max_abs_err": err, "tol": tol[dt], "ms": ms,
                   "plain_ms": plain, "sdpa_ms": lib_ms,
+                  "sdpa_ratio": ms / lib_ms,
                   "event_ms": [ev_ms, ev_plain, ev_lib],
                   "sdpa_max_abs_err": lib_err, "bound_ms": bms,
                   "bound_by": by})
@@ -655,23 +668,30 @@ def attention_kernel_checks(torch, emit_kernel):
               "dtype": "torch.bfloat16", "max_abs_err": err})
         emit_kernel("flash_attention", max_abs_err=err)
 
-    B, S = 8, 1024
-    lengths = torch.tensor([1, 1024, 17, 512, 333, 1000, 64, 777],
-                           dtype=torch.int32, device="cuda")
-    n_pos = int(lengths.sum())
-    mask = (torch.arange(S, device="cuda")[None]
-            < lengths[:, None])[:, None, None, :]
-    # Qwen3-0.6B's decode (8 KV heads, group 2), then OLMoE's (16, 1)
-    for dt, (KV, G, model) in itertools.product(
+    # Qwen3-0.6B's decode (8 KV heads, group 2), then OLMoE's (16, 1):
+    # ragged lengths from 1 to 1024 (the path's record), every length 1,
+    # every length S, and a single request at S
+    S = 1024
+    len_cases = (("lengths 1..1024",
+                  [1, 1024, 17, 512, 333, 1000, 64, 777]),
+                 ("every length 1", [1] * 8),
+                 ("every length 1024", [S] * 8),
+                 ("B=1 length 1024", [S]))
+    for dt, (KV, G, model), (label, lens) in itertools.product(
             (torch.float32, torch.bfloat16),
-            ((8, 2, "qwen3"), (16, 1, "olmoe"))):
+            ((8, 2, "qwen3"), (16, 1, "olmoe")), len_cases):
+        B = len(lens)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        n_pos = sum(lens)
+        mask = (torch.arange(S, device="cuda")[None]
+                < lengths[:, None])[:, None, None, :]
         q = randn(B, KV, G, hd, dt=dt)
         kc, vc = randn(B, S, KV, hd, dt=dt), randn(B, S, KV, hd, dt=dt)
         out = decode_attention_cuda(q, kc, vc, lengths)
         torch.cuda.synchronize()
         want = ref.decode_attention_ref(q, kc, vc, lengths)
         err, ok = allclose(torch, out, want, tol[dt])
-        require(ok, f"K5 {model} {dt}: max abs err {err} beyond "
+        require(ok, f"K5 {model} {label} {dt}: max abs err {err} beyond "
                 f"{tol[dt]}")
         qs = q.reshape(B, KV * G, 1, hd)
         ks, vs = kc.transpose(1, 2), vc.transpose(1, 2)
@@ -689,17 +709,80 @@ def attention_kernel_checks(torch, emit_kernel):
         n_ops = 4.0 * hd * G * KV * n_pos
         bms, by = bound_ms(n_bytes, n_ops, peak[dt])
         emit({"phase": "kernel", "kernel": "decode_attention",
-              "case": f"{model} decode B=8, S=1024, lengths 1..1024",
+              "case": f"{model} decode B={B}, S={S}, {label}",
               "dtype": str(dt),
               "q": [B, KV, G, hd], "cache": [B, S, KV, hd],
               "positions": n_pos, "max_abs_err": err, "tol": tol[dt],
               "ms": ms, "plain_ms": plain, "sdpa_ms": lib_ms,
+              "sdpa_ratio": ms / lib_ms,
               "event_ms": [ev_ms, ev_plain, ev_lib],
               "sdpa_max_abs_err": lib_err, "bound_ms": bms, "bound_by": by})
         emit_kernel("decode_attention", max_abs_err=err,
-                    main=(dt == torch.bfloat16 and model == "qwen3"), ms=ms,
+                    main=(dt == torch.bfloat16 and model == "qwen3"
+                          and label == len_cases[0][0]), ms=ms,
                     plain_ms=plain,
                     bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+    # K5 off the path: hd 50 is no multiple of a 16-byte vector (the
+    # element-by-element loads) and G = 3 puts four query rows in a CTA
+    for dt in (torch.float32, torch.bfloat16):
+        lengths = torch.tensor([1, 64, 300], dtype=torch.int32,
+                               device="cuda")
+        q = randn(3, 2, 3, 50, dt=dt)
+        kc, vc = randn(3, 300, 2, 50, dt=dt), randn(3, 300, 2, 50, dt=dt)
+        out = decode_attention_cuda(q, kc, vc, lengths)
+        torch.cuda.synchronize()
+        err, ok = allclose(torch, out, ref.decode_attention_ref(
+            q, kc, vc, lengths), tol[dt])
+        require(ok, f"K5 hd=50 G=3 {dt}: max abs err {err} beyond "
+                f"{tol[dt]}")
+        emit({"phase": "kernel", "kernel": "decode_attention",
+              "case": "B=3, S=300, hd=50, G=3, lengths 1, 64, 300",
+              "dtype": str(dt), "max_abs_err": err})
+        emit_kernel("decode_attention", max_abs_err=err)
+
+    # K4 and K5 captured in one CUDA graph (their wrappers read no device
+    # value on the host): replays on new inputs copied into the captured
+    # tensors, new lengths too, hold against the plain versions
+    B, L = 8, 333
+    q, kc, vc = (randn(B, 8, 2, hd, dt=torch.bfloat16),
+                 randn(B, S, 8, hd, dt=torch.bfloat16),
+                 randn(B, S, 8, hd, dt=torch.bfloat16))
+    lengths = torch.ones(B, dtype=torch.int32, device="cuda")
+    qp, kp, vp = (randn(1, L, h, hd, dt=torch.bfloat16).transpose(1, 2)
+                  for h in (16, 8, 8))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            decode_attention_cuda(q, kc, vc, lengths)
+            flash_attention_cuda(qp, kp, vp, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        dec = decode_attention_cuda(q, kc, vc, lengths)
+        pre = flash_attention_cuda(qp, kp, vp, True)
+    errs = []
+    for lens in ([1, 1024, 17, 512, 333, 1000, 64, 777], [S] * B):
+        for t in (q, kc, vc, qp, kp, vp):
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+        lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, got, want in (
+                ("decode_attention", dec,
+                 ref.decode_attention_ref(q, kc, vc, lengths)),
+                ("flash_attention", pre,
+                 ref.flash_attention_ref(qp, kp, vp, True))):
+            err, ok = allclose(torch, got, want, 2e-2)
+            require(ok, f"{name} in a CUDA graph: max abs err {err} beyond "
+                    "2e-2")
+            errs.append(err)
+            emit_kernel(name, max_abs_err=err)
+    emit({"phase": "kernel", "kernel": "flash_attention+decode_attention",
+          "case": "captured in one CUDA graph, two replays on new inputs",
+          "dtype": "torch.bfloat16", "max_abs_err": max(errs)})
+    del graph
 
 
 def ssd_ops(B, L, H, P, N, Q=SSD_KERNEL_CHUNK) -> float:
@@ -1483,7 +1566,12 @@ def profile_decode(torch, model, prompts, label, top=12):
           "decode_steps": len(stats["decode_ms"]),
           "launches": stats["launches"],
           "top": [{"kernel": k[:80], "ms": ms, "calls": n}
-                  for k, ms, n in rows[:top]]})
+                  for k, ms, n in rows[:top]],
+          # the port's own kernels (csrc/), wherever they rank
+          "port_kernels": [{"kernel": k[:80], "ms": ms, "calls": n}
+                           for k, ms, n in rows
+                           if k.split("(anonymous namespace)::", 1)[-1]
+                           .startswith(PORT_KERNEL_PREFIXES)]})
 
 
 if __name__ == "__main__":

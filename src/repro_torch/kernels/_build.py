@@ -91,9 +91,9 @@ _SIGNATURES = {
                                   + [_FLOAT, _INT, _PTR],
     },
     "decode_attention": {
-        "decode_attention_launch": [_INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
-                                    _PTR, _INT, _INT, _INT, _INT]
-                                   + [_LONG] * 12 + [_FLOAT, _PTR],
+        "decode_attention_launch": [_INT, _INT, _INT] + [_PTR] * 7
+                                   + [_INT] * 7 + [_LONG] * 12
+                                   + [_FLOAT, _PTR],
     },
     "ssd_scan": {
         "ssd_scan_launch": [_INT] + [_PTR] * 8 + [_INT] * 5 + [_PTR],

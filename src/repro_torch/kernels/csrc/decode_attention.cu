@@ -9,46 +9,60 @@
 // probabilities and accumulators, normalised once at the end, one cast
 // of the output to the input type (float32 or bfloat16).
 //
-// Design: one CTA of 16 warps per (KV head, batch row, group of up to
-// MG query rows), so the G = 2 query rows of a head share every K/V
-// load.  The cache is read in place in the engine's [B, S, KV, hd]
-// layout by strides (no transpose per call).  Warp w takes positions
-// w·U + 16·U·t .. +U-1 (U = 4): it loads the U keys and values first
-// (lane l holds head dims l, l + 32, ...), reduces the U·G dot products
-// in one interleaved butterfly, then folds the U positions into its
-// online softmax.  Only positions < lengths[b] are visited, and the
-// first position of every group a warp takes is valid, so its running
-// max is finite before any masked position of the group (set to
-// NEG_INF) is exponentiated.  The 16 warps' partial results are merged
-// in a fixed warp order through shared memory; a warp that saw no
-// position (running sum 0) gets weight 0.  That is the guard against
-// the hazard of splitting the sequence axis: a split that begins at or
-// past lengths[b] keeps max = NEG_INF, and a naive merge would weigh
-// it by exp(NEG_INF - NEG_INF) = 1.  lengths[b] >= 1 is the caller's
-// contract (the engine's lengths are pos + 1).
+// Bound: bytes.  A call must read lengths[b]·hd K and V values per (b,
+// h) and does 4·G multiply-adds per value pair, 1-2 query rows per KV
+// head, so tensor cores would idle 62 of their 64 rows.  At Qwen3-0.6B's
+// decode (q [8, 8, 2, 128] bf16 against an [8, 1024, 8, 128] cache,
+// 3,728 valid positions) that is 15.3 MB, 4.6 µs at 3.35 TB/s; at
+// OLMoE's (q [8, 16, 1, 128]) twice the bytes.  So the kernel has to keep
+// every SM pulling bytes, whatever B and the lengths are.
 //
-// Bound: bytes.  Each call must read lengths[b]·hd·2 K/V values per
-// (b, h); at B = 8, KV = 8, hd = 128 in bfloat16 that is ~0.5 KB a
-// position, a few MB a call, a few microseconds at 3.35 TB/s.  With
-// one CTA per (h, b) only B·KV = 64 SMs pull bytes, and each warp's
-// groups are latency-bound; splitting the sequence across CTAs is the
-// next step.
+// Design, on CUDA cores:
+//
+// * The sequence is split across CTAs.  The grid is (KV, B, n_splits ·
+//   ceil(G / MG)); CTA (h, b, split s) takes positions [s·split,
+//   (s+1)·split) of the cache capacity S, where the wrapper picks split
+//   (a power of two, 16-64) from B, KV and S alone so that the grid has
+//   a CTA for every SM at B = 1 too (no host read of lengths: the launch
+//   is capturable in a CUDA graph).  A CTA whose split starts at or past
+//   lengths[b] exits at once: it loads nothing and takes no part in the
+//   merge, which counts only the n_live = ceil(lengths[b] / split) live
+//   splits.
+// * In a CTA of 4 warps, a cache row of hd values is LPR lanes of 16-byte
+//   loads (bf16 at hd 128: 16 lanes, two rows a warp; float32: 32 lanes,
+//   one row).  Each lane issues the loads of U warp steps (up to 16 rows
+//   of K and V a warp) before it uses any, so a warp keeps U·2 16-byte
+//   loads in flight; then one interleaved butterfly of LPR lanes reduces
+//   the U·MG dot products and the lane folds its U rows into its running
+//   max, sum and accumulator.  A masked row gets probability 0, never
+//   exp(NEG_INF - NEG_INF) = 1.
+// * The CTA merges its row groups' partial softmaxes in a fixed order
+//   through shared memory (a group that saw no position has sum 0 and
+//   weight 0).  With one live split that is the output; otherwise it
+//   writes one partial (max, sum, hd accumulators per query row) to a
+//   float32 scratch the wrapper allocates.
+// * The partials are merged in split order by the last live CTA of each
+//   (KV head, batch row, query group): each takes a ticket from an atomic
+//   counter after its partial is visible; the one that draws n_live - 1
+//   loads every live partial's (max, sum) and its first accumulators
+//   together, weighs split s by exp(m_s - M) (0 for an empty partial),
+//   writes the output and resets the counter to 0 for the next call.
+//   One launch, no second kernel: the decode step keeps one launch a
+//   layer, and no launch waits on another.  The order of the sums is
+//   fixed, so the result does not depend on which CTA comes last.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 16;
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kU = 4;            // positions a warp loads before reducing
+constexpr int kMaxSplits = 256;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
     return x;
@@ -62,182 +76,338 @@ struct Strides {   // element strides of three leading axes (see launch)
     long a, b, c;
 };
 
-template <typename T, int NI, int MG>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-              const T* __restrict__ vc, const int* __restrict__ lengths,
-              T* __restrict__ o, Strides qs, Strides ks, Strides vs,
-              Strides os, int G, int hd, float scale) {
-    __shared__ float m_s[kWarps][MG], l_s[kWarps][MG];
-    __shared__ float M_s[MG], L_s[MG];
-    __shared__ float o_s[MG][NI * 32];
+// The 16 bytes of elements [d0, d0 + 16 / sizeof(T)) of one cache row,
+// zero past hd: one vector load when the row is 16-byte aligned and hd a
+// multiple of the vector (vec), element by element otherwise.
+template <typename T>
+__device__ __forceinline__ uint4 load_chunk(const T* row, int d0, int hd,
+                                            bool vec) {
+    constexpr int N = 16 / sizeof(T);
+    if (d0 >= hd) return make_uint4(0u, 0u, 0u, 0u);
+    if (vec) return __ldg(reinterpret_cast<const uint4*>(row + d0));
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+        if (d0 + e >= hd) break;
+        if constexpr (sizeof(T) == 2)
+            w[e / 2] |= (uint32_t)__bfloat16_as_ushort(row[d0 + e])
+                << (16 * (e & 1));
+        else
+            w[e] = __float_as_uint(row[d0 + e]);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
 
-    const int kvh = blockIdx.x, b = blockIdx.y, g0 = blockIdx.z * MG;
-    const int ng = min(MG, G - g0);
+// the 16 bytes as float32 values, exactly
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& u,
+                                       float (&f)[16 / sizeof(T)]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        if constexpr (sizeof(T) == 2) {
+            f[2 * i] = __uint_as_float(w[i] << 16);
+            f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+        } else {
+            f[i] = __uint_as_float(w[i]);
+        }
+    }
+}
+
+// T: cache type; LPR: lanes a cache row takes (a power of two, 4-32);
+// MG: query rows a CTA takes (1, 2, 4 or 8).  At MG <= 2 (the serving
+// path) the registers are held to 128, so 4 CTAs share an SM.
+template <typename T, int LPR, int MG>
+__global__ void __launch_bounds__(kThreads, MG <= 2 ? 4 : 1)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                    const T* __restrict__ vc,
+                    const int* __restrict__ lengths, T* __restrict__ o,
+                    float* __restrict__ part, int* __restrict__ tickets,
+                    Strides qs, Strides ks, Strides vs, Strides os, int G,
+                    int hd, int S, int split, int n_splits, float scale,
+                    int vec) {
+    constexpr int N = 16 / sizeof(T);     // elements a lane loads at once
+    constexpr int RPW = 32 / LPR;         // cache rows a warp step covers
+    constexpr int NGRP = kWarps * RPW;    // partial softmaxes in a CTA
+    constexpr int HDP = LPR * N;          // head dims a row's lanes cover
+    constexpr int kU = MG <= 2 ? 8 : (MG == 4 ? 4 : 2);   // steps in flight
+    constexpr int kStep = kWarps * RPW;   // rows between a warp's steps
+    constexpr int kBuf = NGRP * MG * HDP > 2 * MG * kMaxSplits
+        ? NGRP * MG * HDP : 2 * MG * kMaxSplits;
+    __shared__ float grp_m[NGRP][MG], grp_l[NGRP][MG];
+    __shared__ float buf[kBuf];   // group accumulators, then split weights
+    __shared__ float tot_l[MG];
+    __shared__ int is_last;
+
+    const int n_gz = (G + MG - 1) / MG;
+    const int kvh = blockIdx.x, b = blockIdx.y;
+    const int gz = blockIdx.z % n_gz, sp = blockIdx.z / n_gz;
+    const int g0 = gz * MG, ng = min(MG, G - g0);
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int len = lengths[b];
-    const T* kb = kc + b * ks.a + kvh * ks.c;     // + s·ks.b + d
-    const T* vb = vc + b * vs.a + kvh * vs.c;
+    const int r = lane / LPR, d0 = (lane % LPR) * N;
+    const int len = min(lengths[b], S);
+    const int n_live = (len + split - 1) / split;   // splits with positions
+    if (sp >= n_live) return;
+    const int p0 = sp * split, p1 = min(p0 + split, len);
+    // partial (b, kvh, gz, sp): MG·2 of (max, sum), then MG·hd sums
+    const long set = ((long)b * gridDim.x + kvh) * n_gz + gz;
+    const long stride = (long)MG * (hd + 2);
+    float* mine = part + (set * n_splits + sp) * stride;
 
-    float qr[MG][NI], m[MG], l[MG], acc[MG][NI];
+    float qf[MG][N], m[MG], l[MG], acc[MG][N];
 #pragma unroll
     for (int g = 0; g < MG; ++g) {
         m[g] = kNegInf;
         l[g] = 0.0f;
+        const uint4 qc = g < ng
+            ? load_chunk(q + b * qs.a + kvh * qs.b + (g0 + g) * qs.c, d0, hd,
+                         vec)
+            : make_uint4(0u, 0u, 0u, 0u);
+        unpack<T>(qc, qf[g]);
 #pragma unroll
-        for (int i = 0; i < NI; ++i) {
-            const int d = lane + 32 * i;
-            qr[g][i] = (g < ng && d < hd)
-                ? to_f(q[b * qs.a + kvh * qs.b + (g0 + g) * qs.c + d])
-                : 0.0f;
-            acc[g][i] = 0.0f;
-        }
+        for (int e = 0; e < N; ++e) acc[g][e] = 0.0f;
     }
-
-    for (int base = warp * kU; base < len; base += kWarps * kU) {
-        float kr[kU][NI], vr[kU][NI];
+    const T* kb = kc + b * ks.a + kvh * ks.c;   // + position·ks.b
+    const T* vb = vc + b * vs.a + kvh * vs.c;
+    // warp step u of a pass covers rows base + u·kStep + [0, RPW)
+    for (int base = p0 + warp * RPW; base < p1; base += kU * kStep) {
+        uint4 kr[kU], vr[kU];
 #pragma unroll
         for (int u = 0; u < kU; ++u) {
-            const long p = base + u;
-            const bool ok = p < len;
-#pragma unroll
-            for (int i = 0; i < NI; ++i) {
-                const int d = lane + 32 * i;
-                const bool okd = ok && d < hd;
-                kr[u][i] = okd ? to_f(kb[p * ks.b + d]) : 0.0f;
-                vr[u][i] = okd ? to_f(vb[p * vs.b + d]) : 0.0f;
-            }
+            const int p = base + u * kStep + r;
+            const bool ok = p < p1;
+            kr[u] = ok ? load_chunk(kb + (long)p * ks.b, d0, hd, vec)
+                       : make_uint4(0u, 0u, 0u, 0u);
+            vr[u] = ok ? load_chunk(vb + (long)p * vs.b, d0, hd, vec)
+                       : make_uint4(0u, 0u, 0u, 0u);
         }
         float s[kU][MG];
 #pragma unroll
-        for (int u = 0; u < kU; ++u)
+        for (int u = 0; u < kU; ++u) {
+            float kf[N];
+            unpack<T>(kr[u], kf);
 #pragma unroll
             for (int g = 0; g < MG; ++g) {
                 float t = 0.0f;
 #pragma unroll
-                for (int i = 0; i < NI; ++i) t = fmaf(qr[g][i], kr[u][i], t);
+                for (int e = 0; e < N; ++e) t = fmaf(qf[g][e], kf[e], t);
                 s[u][g] = t;
             }
+        }
 #pragma unroll
-        for (int off = 16; off >= 1; off >>= 1)
+        for (int off = LPR / 2; off >= 1; off >>= 1)
 #pragma unroll
             for (int u = 0; u < kU; ++u)
 #pragma unroll
                 for (int g = 0; g < MG; ++g)
                     s[u][g] += __shfl_xor_sync(kFull, s[u][g], off);
+        // online softmax over this pass's rows; masked rows weigh 0
+        float pr[kU][MG];
 #pragma unroll
         for (int g = 0; g < MG; ++g) {
             float mx = m[g];
 #pragma unroll
             for (int u = 0; u < kU; ++u) {
-                s[u][g] = base + u < len ? s[u][g] * scale : kNegInf;
+                const bool ok = base + u * kStep + r < p1;
+                s[u][g] = ok ? s[u][g] * scale : kNegInf;
                 mx = fmaxf(mx, s[u][g]);
             }
             const float alpha = expf(m[g] - mx);
-            float p[kU], ps = 0.0f;
+            float ps = 0.0f;
 #pragma unroll
             for (int u = 0; u < kU; ++u) {
-                p[u] = expf(s[u][g] - mx);
-                ps += p[u];
+                const bool ok = base + u * kStep + r < p1;
+                pr[u][g] = ok ? expf(s[u][g] - mx) : 0.0f;
+                ps += pr[u][g];
             }
             l[g] = l[g] * alpha + ps;
-#pragma unroll
-            for (int i = 0; i < NI; ++i) {
-                float a = acc[g][i] * alpha;
-#pragma unroll
-                for (int u = 0; u < kU; ++u) a = fmaf(p[u], vr[u][i], a);
-                acc[g][i] = a;
-            }
             m[g] = mx;
+#pragma unroll
+            for (int e = 0; e < N; ++e) acc[g][e] *= alpha;
+        }
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+            float vf[N];
+            unpack<T>(vr[u], vf);
+#pragma unroll
+            for (int g = 0; g < MG; ++g)
+#pragma unroll
+                for (int e = 0; e < N; ++e)
+                    acc[g][e] = fmaf(pr[u][g], vf[e], acc[g][e]);
         }
     }
 
-    // merge the warps' partial softmaxes in warp order
-    if (lane == 0) {
+    // merge the CTA's row groups in a fixed order
+    const int grp = warp * RPW + r;
 #pragma unroll
-        for (int g = 0; g < MG; ++g) {
-            m_s[warp][g] = m[g];
-            l_s[warp][g] = l[g];
+    for (int g = 0; g < MG; ++g) {
+        if (d0 == 0) {
+            grp_m[grp][g] = m[g];
+            grp_l[grp][g] = l[g];
         }
-    }
-    for (int idx = threadIdx.x; idx < MG * NI * 32; idx += kThreads)
-        (&o_s[0][0])[idx] = 0.0f;
-    __syncthreads();
-    if (threadIdx.x < MG) {
-        const int g = threadIdx.x;
-        float mx = kNegInf, tot = 0.0f;
-        for (int w = 0; w < kWarps; ++w)
-            if (l_s[w][g] > 0.0f) mx = fmaxf(mx, m_s[w][g]);
-        for (int w = 0; w < kWarps; ++w)
-            if (l_s[w][g] > 0.0f) tot += l_s[w][g] * expf(m_s[w][g] - mx);
-        M_s[g] = mx;
-        L_s[g] = tot;
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+            buf[(grp * MG + g) * HDP + d0 + e] = acc[g][e];
     }
     __syncthreads();
-    for (int w = 0; w < kWarps; ++w) {
-        if (warp == w) {
-#pragma unroll
-            for (int g = 0; g < MG; ++g) {
-                const float wt = l[g] > 0.0f ? expf(m[g] - M_s[g]) : 0.0f;
-#pragma unroll
-                for (int i = 0; i < NI; ++i)
-                    o_s[g][lane + 32 * i] += wt * acc[g][i];
-            }
-        }
-        __syncthreads();
-    }
     for (int idx = threadIdx.x; idx < ng * hd; idx += kThreads) {
         const int g = idx / hd, d = idx - g * hd;
-        o[b * os.a + kvh * os.b + (g0 + g) * os.c + d] =
-            from_f<T>(o_s[g][d] / fmaxf(L_s[g], 1e-30f));
+        float mx = kNegInf;
+        for (int j = 0; j < NGRP; ++j)
+            if (grp_l[j][g] > 0.0f) mx = fmaxf(mx, grp_m[j][g]);
+        float tot = 0.0f, a = 0.0f;
+        for (int j = 0; j < NGRP; ++j) {
+            if (grp_l[j][g] > 0.0f) {
+                const float w = expf(grp_m[j][g] - mx);
+                tot += w * grp_l[j][g];
+                a += w * buf[(j * MG + g) * HDP + d];
+            }
+        }
+        if (n_live == 1) {   // the whole row: the output itself
+            o[b * os.a + kvh * os.b + (g0 + g) * os.c + d] =
+                from_f<T>(a / fmaxf(tot, 1e-30f));
+            continue;
+        }
+        mine[2 * MG + g * hd + d] = a;
+        if (d == 0) {
+            mine[2 * g] = mx;
+            mine[2 * g + 1] = tot;
+        }
     }
+    if (n_live == 1) return;
+
+    // the last live CTA of (b, kvh, gz) to finish merges the live splits
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+        is_last = atomicAdd(tickets + set, 1) == n_live - 1;
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    const float* all = part + set * n_splits * stride;
+    float* w_m = buf;                      // [MG][n_splits] maxima,
+    float* w_l = buf + MG * kMaxSplits;    // then weights; sums
+    // this thread's (query row, dim) pairs, at most kPairs of them, and
+    // their first kBatch splits' sums, loaded beside the (max, sum) pairs
+    // (a live split's sum is positive, so none is loaded in vain)
+    constexpr int kPairs = (MG * 128 + kThreads - 1) / kThreads;
+    constexpr int kBatch = 16 / kPairs;
+    float x[kPairs][kBatch];
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+        const int idx = threadIdx.x + j * kThreads, g = idx / hd;
+        const float* src = all + 2 * MG + idx;   // g·hd + d == idx
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i)
+            x[j][i] = g < ng && i < n_live ? __ldcg(src + i * stride) : 0.0f;
+    }
+    for (int idx = threadIdx.x; idx < ng * n_live; idx += kThreads) {
+        const int g = idx / n_live, s = idx - g * n_live;
+        w_m[g * kMaxSplits + s] = __ldcg(all + s * stride + 2 * g);
+        w_l[g * kMaxSplits + s] = __ldcg(all + s * stride + 2 * g + 1);
+    }
+    __syncthreads();
+    // one warp a query row: the max over the live splits, each split's
+    // weight exp(m_s - M) (0 for an empty one) and the weighted sum
+    for (int g = warp; g < ng; g += kWarps) {
+        float* wm = w_m + g * kMaxSplits;
+        const float* wl = w_l + g * kMaxSplits;
+        float mx = kNegInf, tot = 0.0f;
+        for (int s = lane; s < n_live; s += 32)
+            if (wl[s] > 0.0f) mx = fmaxf(mx, wm[s]);
+#pragma unroll
+        for (int off = 16; off >= 1; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+        for (int s = lane; s < n_live; s += 32) {
+            const float w = wl[s] > 0.0f ? expf(wm[s] - mx) : 0.0f;
+            wm[s] = w;
+            tot += w * wl[s];
+        }
+#pragma unroll
+        for (int off = 16; off >= 1; off >>= 1)
+            tot += __shfl_xor_sync(kFull, tot, off);
+        if (lane == 0) tot_l[g] = fmaxf(tot, 1e-30f);
+    }
+    __syncthreads();
+    // the output: the splits' sums in split order, kBatch loads in flight
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+        const int idx = threadIdx.x + j * kThreads, g = idx / hd;
+        if (g >= ng) break;
+        const float* w = w_m + g * kMaxSplits;
+        const float* src = all + 2 * MG + idx;
+        float a = 0.0f;
+        for (int s0 = 0; s0 < n_live; s0 += kBatch) {
+            if (s0 > 0) {
+#pragma unroll
+                for (int i = 0; i < kBatch; ++i)
+                    x[j][i] = s0 + i < n_live
+                        ? __ldcg(src + (s0 + i) * stride) : 0.0f;
+            }
+#pragma unroll
+            for (int i = 0; i < kBatch; ++i)
+                if (s0 + i < n_live) a += w[s0 + i] * x[j][i];
+        }
+        o[b * os.a + kvh * os.b + (g0 + g) * os.c + idx - g * hd] =
+            from_f<T>(a / tot_l[g]);
+    }
+    if (threadIdx.x == 0) tickets[set] = 0;
 }
 
-template <typename T, int NI, int MG>
+template <typename T, int LPR, int MG>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const void* lengths, void* o, int B, int KV, int G,
-                   int hd, Strides qs, Strides ks, Strides vs, Strides os,
-                   float scale, cudaStream_t stream) {
-    const dim3 grid(KV, B, (G + MG - 1) / MG);
-    decode_kernel<T, NI, MG><<<grid, kThreads, 0, stream>>>(
+                   const void* lengths, void* o, void* part, void* tickets,
+                   int B, int KV, int G, int hd, int S, int split,
+                   int n_splits, Strides qs, Strides ks, Strides vs,
+                   Strides os, float scale, int vec, cudaStream_t stream) {
+    const dim3 grid(KV, B, n_splits * ((G + MG - 1) / MG));
+    decode_split_kernel<T, LPR, MG><<<grid, kThreads, 0, stream>>>(
         (const T*)q, (const T*)kc, (const T*)vc, (const int*)lengths,
-        (T*)o, qs, ks, vs, os, G, hd, scale);
+        (T*)o, (float*)part, (int*)tickets, qs, ks, vs, os, G, hd, S, split,
+        n_splits, scale, vec);
     return cudaGetLastError();
 }
 
-template <typename T, int NI>
+#define DECODE_ARGS q, kc, vc, lengths, o, part, tickets, B, KV, G, hd, S, \
+    split, n_splits, qs, ks, vs, os, scale, vec, stream
+
+template <typename T, int LPR>
 cudaError_t launch_g(int mg, const void* q, const void* kc, const void* vc,
-                     const void* lengths, void* o, int B, int KV, int G,
-                     int hd, Strides qs, Strides ks, Strides vs, Strides os,
-                     float scale, cudaStream_t stream) {
+                     const void* lengths, void* o, void* part, void* tickets,
+                     int B, int KV, int G, int hd, int S, int split,
+                     int n_splits, Strides qs, Strides ks, Strides vs,
+                     Strides os, float scale, int vec, cudaStream_t stream) {
     switch (mg) {
-        case 1: return launch<T, NI, 1>(q, kc, vc, lengths, o, B, KV, G, hd,
-                                        qs, ks, vs, os, scale, stream);
-        case 2: return launch<T, NI, 2>(q, kc, vc, lengths, o, B, KV, G, hd,
-                                        qs, ks, vs, os, scale, stream);
-        case 4: return launch<T, NI, 4>(q, kc, vc, lengths, o, B, KV, G, hd,
-                                        qs, ks, vs, os, scale, stream);
-        case 8: return launch<T, NI, 8>(q, kc, vc, lengths, o, B, KV, G, hd,
-                                        qs, ks, vs, os, scale, stream);
+        case 1: return launch<T, LPR, 1>(DECODE_ARGS);
+        case 2: return launch<T, LPR, 2>(DECODE_ARGS);
+        case 4: return launch<T, LPR, 4>(DECODE_ARGS);
+        case 8: return launch<T, LPR, 8>(DECODE_ARGS);
         default: return cudaErrorInvalidValue;
     }
 }
 
 template <typename T>
-cudaError_t launch_t(int ni, int mg, const void* q, const void* kc,
-                     const void* vc, const void* lengths, void* o, int B,
-                     int KV, int G, int hd, Strides qs, Strides ks,
-                     Strides vs, Strides os, float scale,
+cudaError_t launch_t(int lpr, int mg, const void* q, const void* kc,
+                     const void* vc, const void* lengths, void* o,
+                     void* part, void* tickets, int B, int KV, int G, int hd,
+                     int S, int split, int n_splits, Strides qs, Strides ks,
+                     Strides vs, Strides os, float scale, int vec,
                      cudaStream_t stream) {
-    switch (ni) {
-        case 1: return launch_g<T, 1>(mg, q, kc, vc, lengths, o, B, KV, G,
-                                      hd, qs, ks, vs, os, scale, stream);
-        case 2: return launch_g<T, 2>(mg, q, kc, vc, lengths, o, B, KV, G,
-                                      hd, qs, ks, vs, os, scale, stream);
-        case 4: return launch_g<T, 4>(mg, q, kc, vc, lengths, o, B, KV, G,
-                                      hd, qs, ks, vs, os, scale, stream);
+    switch (lpr) {
+        case 4: return launch_g<T, 4>(mg, DECODE_ARGS);
+        case 8: return launch_g<T, 8>(mg, DECODE_ARGS);
+        case 16: return launch_g<T, 16>(mg, DECODE_ARGS);
+        case 32:   // float32 only: a bf16 row of hd <= 128 takes <= 16
+            if constexpr (sizeof(T) == 4)
+                return launch_g<T, 32>(mg, DECODE_ARGS);
+            return cudaErrorInvalidValue;
         default: return cudaErrorInvalidValue;
     }
+}
+
+bool rows_aligned(const void* p, Strides st, int n) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.a % n == 0
+        && st.b % n == 0 && st.c % n == 0;
 }
 
 }  // namespace
@@ -247,26 +417,38 @@ extern "C" {
 // q [B, KV, G, hd] by strides (b, kv head, g); caches [B, S, KV, hd] by
 // strides (b, s, kv head); o [B, KV, G, hd] by strides (b, kv head, g);
 // the head dim contiguous everywhere; lengths [B] int32 >= 1.  bf16 != 0:
-// q, caches and o are bfloat16, else float32.  ni = hd / 32 rounded up
-// to 1, 2 or 4 (hd <= 128); mg = the query rows a CTA takes, 1, 2, 4 or
-// 8.  Returns cudaGetLastError() of the launch.
-int decode_attention_launch(int bf16, int ni, int mg, const void* q,
+// q, caches and o are bfloat16, else float32.  lpr = the lanes a cache
+// row takes (4, 8, 16 or 32; lpr · 16 bytes >= a row); mg = the query
+// rows a CTA takes, 1, 2, 4 or 8; split and n_splits: the positions a
+// CTA takes and ceil(S / split) <= 256.  part: float32 scratch of
+// B·KV·ceil(G / mg)·n_splits·mg·(hd + 2); tickets: int32
+// [B·KV·ceil(G / mg)], zero, left zero.  Returns cudaGetLastError() of
+// the launch.
+int decode_attention_launch(int bf16, int lpr, int mg, const void* q,
                             const void* kc, const void* vc,
-                            const void* lengths, void* o, int B, int KV,
-                            int G, int hd, long qsb, long qsk, long qsg,
-                            long ksb, long kss, long ksk, long vsb,
-                            long vss, long vsk, long osb, long osk,
+                            const void* lengths, void* o, void* part,
+                            void* tickets, int B, int KV, int G, int hd,
+                            int S, int split, int n_splits, long qsb,
+                            long qsk, long qsg, long ksb, long kss, long ksk,
+                            long vsb, long vss, long vsk, long osb, long osk,
                             long osg, float scale, void* stream) {
     if (B == 0 || KV == 0 || G == 0) return 0;
-    if (hd > 32 * ni) return (int)cudaErrorInvalidValue;
+    const int n = bf16 ? 8 : 4;   // elements in 16 bytes
+    if (hd > lpr * n || n_splits < 1 || n_splits > kMaxSplits
+            || (long)split * n_splits < S)
+        return (int)cudaErrorInvalidValue;
     const Strides qs{qsb, qsk, qsg}, ks{ksb, kss, ksk}, vs{vsb, vss, vsk},
         os{osb, osk, osg};
+    const int vec = hd % n == 0 && rows_aligned(q, qs, n)
+        && rows_aligned(kc, ks, n) && rows_aligned(vc, vs, n);
     if (bf16)
-        return (int)launch_t<__nv_bfloat16>(ni, mg, q, kc, vc, lengths, o, B,
-                                            KV, G, hd, qs, ks, vs, os, scale,
-                                            (cudaStream_t)stream);
-    return (int)launch_t<float>(ni, mg, q, kc, vc, lengths, o, B, KV, G, hd,
-                                qs, ks, vs, os, scale, (cudaStream_t)stream);
+        return (int)launch_t<__nv_bfloat16>(
+            lpr, mg, q, kc, vc, lengths, o, part, tickets, B, KV, G, hd, S,
+            split, n_splits, qs, ks, vs, os, scale, vec,
+            (cudaStream_t)stream);
+    return (int)launch_t<float>(
+        lpr, mg, q, kc, vc, lengths, o, part, tickets, B, KV, G, hd, S,
+        split, n_splits, qs, ks, vs, os, scale, vec, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -9,24 +9,42 @@
 // output accumulator are float32; the output is normalised once at the
 // end and cast once to the input type (float32 or bfloat16).
 //
+// Bound, at the prefill shapes (q [1, 16, L, 128], L <= 512, bf16): the
+// bytes of q, k, v and o (6.3 MB at L = 512 with 8 KV heads) take 1.9 µs
+// at 3.35 TB/s, the causal products 1.1 µs at 989 TFLOP/s.  What costs
+// time is latency: the last query tile walks L / 64 key tiles one after
+// another, so each tile's loads, products and softmax sit on the
+// critical path.
+//
 // Two kernels, picked by what the launch can observe:
 //
-// * bfloat16 with hd 64 or 128 and 16-byte aligned rows: tensor cores.
-//   One CTA of 4 warps per (query tile of 64 rows, query head, batch
-//   row); each warp owns 16 query rows, keeps their Q fragments in
-//   registers and multiplies with mma.sync m16n8k16 (bf16 in, f32
-//   accumulate): S = Q Kᵀ for a tile of 64 keys, then, after the online
-//   softmax in registers, O += P V.  P is float32 there, as in the
-//   Pallas kernel; it enters the bf16 mma as two bfloat16 parts, P ≈
-//   hi + lo with hi = bf16(P) and lo = bf16(P - hi), so two mma per tile
-//   carry it to a relative 2^-17 instead of bf16's 2^-9.  The
-//   accumulator layout of S is the operand layout of P, so P never
-//   leaves registers.
+// * bfloat16 with hd 64 or 128 and 16-byte aligned rows: Hopper tensor
+//   cores.  One CTA of one warpgroup (4 warps, 64 query rows) per (query
+//   tile, query head, batch row), the tiles longest first (blockIdx.z = 0
+//   is the last query tile, which walks the most key tiles under the
+//   causal mask).  K and V tiles of 64 keys stream through a ring of 3
+//   stages in shared memory, loaded by cp.async (16 bytes a thread,
+//   rows past S zero-filled) into the 128-byte-swizzled layout wgmma
+//   reads, so tiles kt + 1 and kt + 2 arrive while tile kt is
+//   multiplied.  cp.async rather than TMA: it takes every strided view
+//   the model passes without a tensor map encoded on the host per call.
+//   S = Q Kᵀ is wgmma m64n64k16 with Q and K from shared memory
+//   (K-major); after the online softmax in registers (scores scaled into
+//   log2 units, so exp2 takes the exponentials), O += P V is wgmma
+//   m64n{hd}k16 with P from registers (the S accumulator layout is the A
+//   fragment layout, so P never leaves them) and V from shared memory as
+//   an MN-major B operand.  P is float32, as in the Pallas kernel; it
+//   enters the bf16 product as two bfloat16 parts, P ≈ hi + lo with hi =
+//   bf16(P) and lo = bf16(P - hi), two wgmma into the same float32
+//   accumulator, which carries it to a relative 2^-17 instead of bf16's
+//   2^-9.  A CTA takes 112 KB of shared memory and 128 threads of at
+//   most 255 registers at hd 128, so two fit an SM (228 KB, 64 K
+//   registers) where the grid is larger than the card.
 // * float32, or any other head dim (<= 128): CUDA cores.  One CTA of
 //   256 threads per (query tile of 64, head, batch row) with Q, K, V and
 //   the score tile staged in shared memory as float32; thread (ty, tx)
 //   of a 16 x 16 grid owns score rows ty + 16i, columns tx + 16j, and
-//   output dims tx + 16j.
+//   output dims tx + 16j.  It loads each tile synchronously.
 //
 // Both walk the keys in tiles of 64 up to the diagonal when causal
 // (tiles wholly above it contribute nothing), keep a running max and
@@ -35,12 +53,6 @@
 // Pallas wrapper asserts S % 128 == 0).  Inputs are read and the output
 // written by strides, so the model's [B, L, H, hd] activations need no
 // transpose.
-//
-// Bound: at the prefill shapes (S <= 512, hd = 128, bf16) the bytes of
-// q, k, v and o (6.3 MB at S = 512) allow 1.9 µs and the flops 1.1 µs.
-// Both kernels load each tile synchronously before using it, so a CTA
-// waits on global memory once a tile; double-buffered cp.async or TMA
-// loads and wgmma are the next steps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -248,9 +260,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 
-// ------------------------------------------------- tensor-core kernel
-constexpr int kMmaThreads = 128;   // 4 warps x 16 query rows
-constexpr int kPad = 8;            // bf16 of row padding in shared memory
+// ------------------------------------------- tensor-core kernel (Hopper)
+constexpr int kWgThreads = 128;    // one warpgroup: 64 query rows
+constexpr int kStages = 3;         // K/V tiles in the shared-memory ring
+constexpr uint32_t kBlockBytes = 64 * 128;   // 64 rows of 128 bytes
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -266,120 +279,267 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
     hi = *reinterpret_cast<uint32_t*>(&h);
     lo = *reinterpret_cast<uint32_t*>(&l);
 }
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-    return (uint32_t)__bfloat16_as_ushort(lo)
-        | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
+// 16 bytes global -> shared, bypassing L1; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
-// d += a · b for one m16n8k16 tile (bf16 in, f32 accumulate)
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// this thread's shared-memory writes, visible to wgmma's async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// pins the accumulator registers in program order around wgmma, which
+// reads and writes them asynchronously
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+// K-major (Q, K): 8-row groups 1024 bytes apart (stride), the leading
+// offset unused.  MN-major (V): 64-column blocks `lbo` apart (leading),
+// 8-row groups 1024 bytes apart (stride).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4)
+        | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16)
+        | ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// d[0..31] (+)= A·B for one m64n64k16 step, A and B from shared memory
+// (K-major, 128-byte swizzle); scale_d == 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
     asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31},"
+        " %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
 }
 
-size_t mma_smem_bytes(int hd) {
-    return sizeof(__nv_bfloat16) * (size_t)(kBQ + 2 * kBK) * (hd + kPad);
+// d[0..31] += A·B for one m64n64k16 step: A from registers (the
+// m16n8k16 A-fragment layout per warp), B from shared memory
+// (MN-major, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31},"
+        " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// rows [row0, row0 + rows) of a [S, HD] bf16 slab into shared memory,
-// 16 bytes a thread at a time, rows past S zero-filled
+// d[0..63] += A·B for one m64n128k16 step: A from registers (the
+// m16n8k16 A-fragment layout per warp), B from shared memory
+// (MN-major, 128-byte swizzle)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63},"
+        " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// A tile of 64 rows [row0, row0 + 64) of a [S, HD] bf16 slab into shared
+// memory at `dst` (1024-byte aligned) by cp.async, 16 bytes a thread at a
+// time, rows past S zero-filled.  Layout: HD / 64 blocks of 64 rows x
+// 128 bytes, 16-byte chunk c of row r at chunk c ^ (r % 8) (the 128-byte
+// swizzle wgmma reads), so both the K-major and the MN-major descriptors
+// address it.
 template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+__device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
-                                          long stride, int row0, int rows,
-                                          int S) {
+                                          long stride, int row0, int S) {
     constexpr int kChunks = HD / 8;
-    constexpr int kLd = HD + kPad;
-    for (int idx = threadIdx.x; idx < rows * kChunks; idx += kMmaThreads) {
-        const int r = idx / kChunks, c = idx - r * kChunks, s = row0 + r;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (s < S)
-            val = *reinterpret_cast<const uint4*>(src + s * stride + c * 8);
-        *reinterpret_cast<uint4*>(dst + r * kLd + c * 8) = val;
+#pragma unroll
+    for (int i = 0; i < 64 * kChunks / kWgThreads; ++i) {
+        const int idx = threadIdx.x + i * kWgThreads;
+        const int r = idx / kChunks, c = idx % kChunks, s = row0 + r;
+        const bool ok = s < S;
+        const uint32_t off = (c / 8) * kBlockBytes + r * 128
+            + (((c % 8) ^ (r % 8)) << 4);
+        cp_async16(dst + off, src + (long)(ok ? s : 0) * stride + c * 8, ok);
     }
 }
 
+size_t wgmma_smem_bytes(int hd) {   // Q and kStages K/V tiles, + alignment
+    return (size_t)(1 + 2 * kStages) * 64 * hd * 2 + 1024;
+}
+
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, Strides qs, Strides ks,
-                     Strides vs, Strides os, int H, int KV, int S,
-                     float scale, int causal) {
-    constexpr int kLd = HD + kPad;   // conflict-free 32-bit fragment loads
-    constexpr int kKSteps = HD / 16, kDTiles = HD / 8, kKeyTiles = kBK / 8;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __nv_bfloat16* Ks = Qs + kBQ * kLd;
-    __nv_bfloat16* Vs = Ks + kBK * kLd;
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       __nv_bfloat16* __restrict__ o, Strides qs, Strides ks,
+                       Strides vs, Strides os, int H, int KV, int S,
+                       float scale, int causal) {
+    constexpr uint32_t kTile = 64 * HD * 2;   // bytes of one 64-row tile
+    constexpr int kKSteps = HD / 16, kDTiles = HD / 8;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+    // stage s: K at sQ + kTile·(1 + 2s), V right after it
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;   // mma row group, thread in it
-    const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+    const int g = lane >> 2, t = lane & 3;   // fragment row group, column
+    // the longest query tiles first: with causal masking tile i walks
+    // i + 1 key tiles, and blockIdx.z = 0 is scheduled first
+    const int n_qt = (S + 63) / 64, qt = n_qt - 1 - (int)blockIdx.z;
+    const int h = blockIdx.x, b = blockIdx.y, q0 = qt * 64;
     const int kvh = h / (H / KV);
     const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
     const __nv_bfloat16* kb = k + b * ks.b + kvh * ks.h;
     const __nv_bfloat16* vb = v + b * vs.b + kvh * vs.h;
     __nv_bfloat16* ob = o + b * os.b + h * os.h;
+    const int n_kt = causal ? qt + 1 : n_qt;
 
-    load_tile<HD>(Qs, qb, qs.s, q0, kBQ, S);
-    __syncthreads();
-    // A fragments of this warp's 16 query rows, all head-dim steps
-    uint32_t qa[kKSteps][4];
-    const __nv_bfloat16* qrow = Qs + (warp * 16 + g) * kLd + 2 * t;
+    // the ring: group 0 carries Q and key tile 0, group j tile j; one
+    // group is committed per tile (empty past the last) so that
+    // wait_group<kStages - 2> always means "tile kt has landed"
+    load_tile<HD>(sQ, qb, qs.s, q0, S);
 #pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-        qa[kk][0] = ld32(qrow + kk * 16);
-        qa[kk][1] = ld32(qrow + 8 * kLd + kk * 16);
-        qa[kk][2] = ld32(qrow + kk * 16 + 8);
-        qa[kk][3] = ld32(qrow + 8 * kLd + kk * 16 + 8);
+    for (int j = 0; j < kStages - 1; ++j) {
+        if (j < n_kt) {
+            const uint32_t sK = sQ + kTile * (1 + 2 * j);
+            load_tile<HD>(sK, kb, ks.s, j * 64, S);
+            load_tile<HD>(sK + kTile, vb, vs.s, j * 64, S);
+        }
+        cp_async_commit();
     }
-    float acc[kDTiles][4];
+
+    float acc[HD / 2];
 #pragma unroll
-    for (int n = 0; n < kDTiles; ++n)
-        acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-    // this thread's rows: qr0 (c0, c1) and qr0 + 8 (c2, c3)
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+    // this thread's rows: qr0 (fragment entries 0, 1) and qr0 + 8 (2, 3)
     const int qr0 = q0 + warp * 16 + g, qr1 = qr0 + 8;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
 
-    const int kv_end = causal ? min(S, q0 + kBQ) : S;
-    for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-        __syncthreads();   // the previous tile fully consumed
-        load_tile<HD>(Ks, kb, ks.s, k0, kBK, S);
-        load_tile<HD>(Vs, vb, vs.s, k0, kBK, S);
-        __syncthreads();
-
-        float sc[kKeyTiles][4];
-#pragma unroll
-        for (int j = 0; j < kKeyTiles; ++j) {
-            sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
-            const __nv_bfloat16* krow = Ks + (j * 8 + g) * kLd + 2 * t;
-#pragma unroll
-            for (int kk = 0; kk < kKSteps; ++kk)
-                mma_bf16(sc[j], qa[kk], ld32(krow + kk * 16),
-                         ld32(krow + kk * 16 + 8));
+    const float scale2 = scale * 1.4426950408889634f;
+    for (int kt = 0; kt < n_kt; ++kt) {
+        cp_async_wait<kStages - 2>();
+        fence_proxy_async();
+        __syncthreads();   // tile kt landed; tile kt - 1 fully consumed
+        {
+            const int j = kt + kStages - 1;
+            if (j < n_kt) {
+                const uint32_t sK = sQ + kTile * (1 + 2 * (j % kStages));
+                load_tile<HD>(sK, kb, ks.s, j * 64, S);
+                load_tile<HD>(sK + kTile, vb, vs.s, j * 64, S);
+            }
+            cp_async_commit();
         }
-        float mx0 = kNegInf, mx1 = kNegInf;
+        const uint32_t sK = sQ + kTile * (1 + 2 * (kt % kStages));
+        const uint32_t sV = sK + kTile;
+        const int k0 = kt * 64;
+
+        // S = Q Kᵀ: HD / 16 steps of m64n64k16, both operands K-major
+        float sc[32];
 #pragma unroll
-        for (int j = 0; j < kKeyTiles; ++j) {
+        for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kKSteps; ++kk) {
+            const uint32_t off = (kk / 4) * kBlockBytes + (kk % 4) * 32;
+            wgmma_ss_n64(sc, sw128_desc(sQ + off, 16, 1024),
+                         sw128_desc(sK + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+
+        // sc[4j + e]: row qr0 (e < 2) or qr1, key k0 + 8j + 2t + (e & 1)
+        float mx0 = kNegInf, mx1 = kNegInf;
+        const bool masked = (causal && kt == qt) || k0 + 64 > S;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-                const int key = k0 + j * 8 + 2 * t + e;
-                const bool ok0 = key < S && (!causal || key <= qr0);
-                const bool ok1 = key < S && (!causal || key <= qr1);
-                sc[j][e] = ok0 ? sc[j][e] * scale : kNegInf;
-                sc[j][2 + e] = ok1 ? sc[j][2 + e] * scale : kNegInf;
-                mx0 = fmaxf(mx0, sc[j][e]);
-                mx1 = fmaxf(mx1, sc[j][2 + e]);
+                float& s0 = sc[4 * j + e];
+                float& s1 = sc[4 * j + 2 + e];
+                s0 *= scale2;
+                s1 *= scale2;
+                if (masked) {
+                    const int key = k0 + j * 8 + 2 * t + e;
+                    if (key >= S || (causal && key > qr0)) s0 = kNegInf;
+                    if (key >= S || (causal && key > qr1)) s1 = kNegInf;
+                }
+                mx0 = fmaxf(mx0, s0);
+                mx1 = fmaxf(mx1, s1);
             }
         }
 #pragma unroll
@@ -388,16 +548,16 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
             mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, off));
         }
         const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-        const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+        const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
         float rs0 = 0.0f, rs1 = 0.0f;
 #pragma unroll
-        for (int j = 0; j < kKeyTiles; ++j) {
+        for (int j = 0; j < 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-                sc[j][e] = expf(sc[j][e] - mn0);
-                sc[j][2 + e] = expf(sc[j][2 + e] - mn1);
-                rs0 += sc[j][e];
-                rs1 += sc[j][2 + e];
+                sc[4 * j + e] = exp2f(sc[4 * j + e] - mn0);
+                sc[4 * j + 2 + e] = exp2f(sc[4 * j + 2 + e] - mn1);
+                rs0 += sc[4 * j + e];
+                rs1 += sc[4 * j + 2 + e];
             }
         }
         // per-thread partial row sums; the 4 threads of a row add up at
@@ -408,30 +568,38 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         m1 = mn1;
 #pragma unroll
         for (int n = 0; n < kDTiles; ++n) {
-            acc[n][0] *= al0;
-            acc[n][1] *= al0;
-            acc[n][2] *= al1;
-            acc[n][3] *= al1;
+            acc[4 * n] *= al0;
+            acc[4 * n + 1] *= al0;
+            acc[4 * n + 2] *= al1;
+            acc[4 * n + 3] *= al1;
         }
-        // O += P V: S's accumulator tiles 2kk, 2kk+1 are P's A operand,
-        // its high and low bfloat16 parts one mma each
+        // O += P V: S's accumulator entries 8kk..8kk+7 are the A fragment
+        // of key step kk; P's high and low bfloat16 parts one wgmma each,
+        // V an MN-major B operand (16 keys = 2048 bytes a step)
+        uint32_t ph[4][4], pl[4][4];
 #pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk) {
-            uint32_t ph[4], pl[4];
-            split_bf16(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
-            split_bf16(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
-            split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
-            split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
-            const __nv_bfloat16* vrow = Vs + (kk * 16 + 2 * t) * kLd + g;
+        for (int kk = 0; kk < 4; ++kk) {
+            const float* p = sc + 8 * kk;
+            split_bf16(p[0], p[1], ph[kk][0], pl[kk][0]);
+            split_bf16(p[2], p[3], ph[kk][1], pl[kk][1]);
+            split_bf16(p[4], p[5], ph[kk][2], pl[kk][2]);
+            split_bf16(p[6], p[7], ph[kk][3], pl[kk][3]);
+        }
+        wgmma_fence();
 #pragma unroll
-            for (int n = 0; n < kDTiles; ++n) {
-                const __nv_bfloat16* vp = vrow + n * 8;
-                const uint32_t b0 = pack_raw(vp[0], vp[kLd]);
-                const uint32_t b1 = pack_raw(vp[8 * kLd], vp[9 * kLd]);
-                mma_bf16(acc[n], pl, b0, b1);
-                mma_bf16(acc[n], ph, b0, b1);
+        for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t dv = sw128_desc(sV + kk * 2048, kBlockBytes, 1024);
+            if constexpr (HD == 128) {
+                wgmma_rs_n128(acc, pl[kk], dv);
+                wgmma_rs_n128(acc, ph[kk], dv);
+            } else {
+                wgmma_rs_n64(acc, pl[kk], dv);
+                wgmma_rs_n64(acc, ph[kk], dv);
             }
         }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
     }
 
 #pragma unroll
@@ -445,25 +613,25 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         const int d = n * 8 + 2 * t;
         if (qr0 < S)
             *reinterpret_cast<uint32_t*>(ob + qr0 * os.s + d) =
-                pack_bf16(acc[n][0] / d0, acc[n][1] / d0);
+                pack_bf16(acc[4 * n] / d0, acc[4 * n + 1] / d0);
         if (qr1 < S)
             *reinterpret_cast<uint32_t*>(ob + qr1 * os.s + d) =
-                pack_bf16(acc[n][2] / d1, acc[n][3] / d1);
+                pack_bf16(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
     }
 }
 
 template <int HD>
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       void* o, int B, int H, int KV, int S, Strides qs,
-                       Strides ks, Strides vs, Strides os, float scale,
-                       int causal, cudaStream_t stream) {
-    const size_t smem = mma_smem_bytes(HD);
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, int B, int H, int KV, int S, Strides qs,
+                         Strides ks, Strides vs, Strides os, float scale,
+                         int causal, cudaStream_t stream) {
+    const size_t smem = wgmma_smem_bytes(HD);
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel<HD>,
+        flash_fwd_wgmma_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-    flash_fwd_mma_kernel<HD><<<grid, kMmaThreads, smem, stream>>>(
+    const dim3 grid(H, B, (S + 63) / 64);
+    flash_fwd_wgmma_kernel<HD><<<grid, kWgThreads, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, (__nv_bfloat16*)o, qs, ks, vs, os, H, KV,
         S, scale, causal);
@@ -501,11 +669,12 @@ int flash_attention_launch(int bf16, const void* q, const void* k,
             && rows_aligned(k, ks) && rows_aligned(v, vs)
             && rows_aligned(o, os)) {
         if (hd == 64)
-            return (int)launch_mma<64>(q, k, v, o, B, H, KV, S, qs, ks, vs,
-                                       os, scale, causal,
-                                       (cudaStream_t)stream);
-        return (int)launch_mma<128>(q, k, v, o, B, H, KV, S, qs, ks, vs, os,
-                                    scale, causal, (cudaStream_t)stream);
+            return (int)launch_wgmma<64>(q, k, v, o, B, H, KV, S, qs, ks,
+                                         vs, os, scale, causal,
+                                         (cudaStream_t)stream);
+        return (int)launch_wgmma<128>(q, k, v, o, B, H, KV, S, qs, ks, vs,
+                                      os, scale, causal,
+                                      (cudaStream_t)stream);
     }
     if (bf16)
         return (int)launch<__nv_bfloat16>(q, k, v, o, B, H, KV, S, hd, qs,

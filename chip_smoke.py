@@ -9,7 +9,8 @@
 2. Holds every kernel against its plain PyTorch version on the card, at
    the shapes its path gives it: `edge_rounds` (K1) on sw_1000's padded
    tiles and on random DAG tiles, `edge_rounds_bucketed` (K2) on
-   ba_10000's degree buckets (also against K1 on the same problem),
+   ba_10000's degree buckets (also against K1 on the same problem; each
+   record carries the cluster of CTAs a task row got),
    `simplex_project` (K3) on both scenarios' data and result rows, both
    bit for bit (K1, K2) or to atol 1e-5 with every row summing to 1 or
    all zero (K3); `flash_attention` (K4) on Qwen3-0.6B's prefill,
@@ -29,10 +30,12 @@
    state to 1e-4; `moe_gmm` (K7) on OLMoE's expert products, [64, C,
    2048] @ [64, 2048, 1024] and [64, C, 1024] @ [64, 1024, 2048] at
    C in {4, 52, 80}, plus two ragged shapes, in float32 (rtol 1e-5 of
-   Σ|x·w|) and bfloat16 (one ulp).  Prints the times of each, and for K4
-   and K5 that of PyTorch's scaled_dot_product_attention, for K7 that of
-   torch.bmm, on the same inputs as a yardstick (no PyTorch call
-   computes K6's function); K4–K7 are timed by the profiler's device
+   Σ|x·w|) and bfloat16 (one ulp), at C = 4 also with 40 of 64 experts
+   `active` (equal to the dense kernel bit for bit), and one launch with
+   `active` replayed from a CUDA graph on new inputs and active sets.
+   Prints the times of each, and for K4 and K5 that of PyTorch's
+   scaled_dot_product_attention, for K7 that of torch.bmm, on the same
+   inputs as a yardstick (no PyTorch call computes K6's function); K4–K7 are timed by the profiler's device
    time (for K4 and K5 CUDA events around the run are printed beside
    it, and the kernel's ratio to SDPA), the others by CUDA events.
 3. Drives the sparse main path, Algorithm 1 for 20 iterations: sw_1000
@@ -40,7 +43,8 @@
    must be 2 + 5·n and 2·n for the n iterations executed, every cost
    finite and non-increasing, and the accepted costs equal to the JAX
    reference's golden trajectory (`src/repro_torch/data/
-   reference_costs.json`) to rtol 2e-4.
+   reference_costs.json`) to rtol 2e-4.  A traced 3-iteration run then
+   gives K1, K2 and K3's device time a launch on the path's own inputs.
 4. Serves Qwen3-0.6B (28 layers), then Mamba2-130M (24 layers), at full
    width through `ServingEngine`, random weights from SERVE_SEED: 12
    requests on 8 slots, max_len 1024, 32 new tokens (Mamba2's prompts
@@ -222,7 +226,8 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch import core
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels.edge_rounds import (edge_rounds_bucketed_cuda,
+    from repro_torch.kernels.edge_rounds import (cluster_plan, cluster_size,
+                                                 edge_rounds_bucketed_cuda,
                                                  edge_rounds_cuda)
     from repro_torch.kernels.simplex_project import simplex_project_cuda
 
@@ -327,6 +332,7 @@ def main() -> int:
     S, V = net.S, net.V
 
     def k2_case(label, w, b, eb, nbr, mask, w_pad, reduce, main=False):
+        plan = cluster_plan(eb, cluster_size(w.shape[0], eb.lanes))
         x, rounds = edge_rounds_bucketed_cuda(w, b, eb, reduce)
         torch.cuda.synchronize()
         xr, kr = ref.edge_rounds_bucketed_ref(w, b, eb, reduce)
@@ -351,7 +357,9 @@ def main() -> int:
         bms, by = bound_ms(n_bytes, n_ops)
         emit({"phase": "kernel", "kernel": "edge_rounds_bucketed",
               "case": label, "shape": list(w.shape), "dtype": str(w.dtype),
-              "lanes": lanes, "reduce": reduce, "bitwise": True,
+              "lanes": lanes, "cluster": plan.size,
+              "smem_bytes_per_cta": plan.smem_bytes, "reduce": reduce,
+              "bitwise": True,
               "rounds_max": int(rounds.max()), "ms": ms, "plain_ms": plain,
               "padded_k1_ms": k1_ms, "bound_ms": bms, "bound_by": by})
         headline("edge_rounds_bucketed", max_abs_err=0.0, main=main, ms=ms,
@@ -462,7 +470,10 @@ def main() -> int:
               "launches": counts, "seconds": seconds,
               "ms_per_iteration": seconds * 1e3 / n_exec,
               "first_cost": costs[0], "final_cost": costs[-1],
-              "max_rel_err_vs_reference": rel})
+              "max_rel_err_vs_reference": rel,
+              "warm_launch_ms": path_launch_ms(torch, core, net, phi0,
+                                               nbrs[name], bks[name],
+                                               bucketed)})
     # ------------------------------------- serving Qwen3-0.6B, Mamba2-130M
     serve_counts, serve_bf16 = serve_checks(
         torch, src, SERVE_ARCH, "reference_serve.json", SERVE_REQUESTS,
@@ -546,11 +557,45 @@ def profile_paths(torch, core, nets, nbrs, bks, top=12):
                 and e.key != "Activity Buffer Request"]
         device_ms = sum(r[1] for r in rows)
         rows.sort(key=lambda r: -r[1])
+        # each port kernel over all its template instantiations
+        port = {k: {"ms": sum(ms for key, ms, _ in rows if tag in key),
+                    "calls": sum(n for key, _, n in rows if tag in key)}
+                for k, tag in PATH_KERNEL_NAMES.items()}
         emit({"phase": "profile", "scenario": name, "wall_ms": wall_ms,
               "device_ms": device_ms,
               "busy_share": device_ms / wall_ms if wall_ms else None,
+              "port_kernels": {k: v for k, v in port.items() if v["calls"]},
               "top": [{"kernel": k[:80], "ms": ms, "calls": n}
                       for k, ms, n in rows[:top]]})
+
+
+# the port's sparse-path kernels as the profiler names them (each
+# template instantiation is a row of its own)
+PATH_KERNEL_NAMES = {"edge_rounds": "edge_rounds_kernel<",
+                     "edge_rounds_bucketed": "edge_rounds_bucketed_kernel<",
+                     "simplex_project": "simplex_project"}
+
+
+def path_launch_ms(torch, core, net, phi0, nbrs, bks, bucketed,
+                   n_iters=3) -> dict:
+    """Device ms a launch of each port kernel on the path's own (warm)
+    inputs: one traced run of `n_iters` iterations, every instantiation
+    of a kernel summed."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        core.run(net, phi0, n_iters=n_iters, bucketed=bucketed, nbrs=nbrs,
+                 buckets=bks if bucketed else None)
+        torch.cuda.synchronize()
+    out = {}
+    for k, tag in PATH_KERNEL_NAMES.items():
+        rows = [(e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and tag in e.key]
+        n = sum(c for _, c in rows)
+        if n:
+            out[k] = {"ms": sum(t for t, _ in rows) / 1e3 / n, "launches": n}
+    return out
 
 
 def bisection_halvings(torch, ref, phi, delta, M, perm, n_iter=60):
@@ -873,8 +918,13 @@ def gmm_kernel_checks(torch, emit_kernel):
     the prefill's at 333 and 512 tokens), plus two ragged shapes off the
     path (the second not 16-byte aligned: the CUDA-core kernel in
     bfloat16 too), in float32 (rtol 1e-5 of Σ_d |x·w|) and bfloat16 (one
-    ulp, 2^-7), with torch.bmm timed on the same inputs as a
-    yardstick."""
+    ulp, 2^-7), with torch.bmm timed on the same inputs as a yardstick
+    (`bmm_ratio`).  At C = 4, as in a decode step, 40 of the 64 experts
+    are also marked active with the others' rows zero: the kernel must
+    equal its dense run bit for bit and the plain version to the same
+    tolerance, and its time is put beside the dense one.  Last, one
+    launch with `active` captured in a CUDA graph, replayed on new inputs
+    and new active sets."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.moe_gmm import moe_gmm_cuda
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -919,12 +969,101 @@ def gmm_kernel_checks(torch, emit_kernel):
                   "max_abs_err": err, "tol": tol[dt],
                   "max_abs_out": float(want.float().abs().max()),
                   "ms": ms, "plain_ms": plain, "bmm_ms": lib_ms,
-                  "bound_ms": bms, "bound_by": by})
+                  "bmm_ratio": ms / lib_ms, "bound_ms": bms, "bound_by": by})
             emit_kernel("moe_gmm", max_abs_err=err,
                         main=(dt == torch.bfloat16 and C == 4 and D == 2048
                               and E == 64),
                         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                         library_ms=lib_ms)
+            if E == 64 and C == 4:
+                gmm_active_case(torch, gen, x, w, dt, tol[dt], emit_kernel)
+    gmm_graph_case(torch, gen, tol[torch.bfloat16], emit_kernel)
+
+
+def gmm_active_case(torch, gen, x, w, dt, tol, emit_kernel, n_active=40):
+    """K7 at a decode step's C = 4 with `n_active` of 64 experts holding
+    rows (the others' rows zero) and `active` given: equal to the dense
+    kernel on the same inputs, and to the plain version within `tol`;
+    timed beside the dense kernel on the same inputs; the bound counts
+    the active experts' bytes only."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda
+    E, C, D = x.shape
+    F = w.shape[-1]
+    active = torch.zeros(E, dtype=torch.bool, device="cuda")
+    active[torch.randperm(E, generator=gen, device="cuda")[:n_active]] = True
+    xa = x * active[:, None, None].to(dt)
+    got = moe_gmm_cuda(xa, w, active)
+    dense = moe_gmm_cuda(xa, w)
+    torch.cuda.synchronize()
+    want = ref.moe_gmm_ref(xa, w, active)
+    label = f"K7 [{E},{C},{D}]@[{E},{D},{F}] {dt}, {n_active} active"
+    require(torch.equal(got, dense), f"{label}: != the dense kernel")
+    if dt == torch.float32:
+        d = (got - want).abs()
+        err = float(d.max())
+        ok = bool((d <= tol * ref.moe_gmm_ref(xa.abs(), w.abs())).all())
+    else:
+        err, ok = allclose(torch, got, want, tol)
+    require(ok, f"{label}: max abs err {err} beyond {tol}")
+    calls = (lambda: moe_gmm_cuda(xa, w, active),
+             lambda: moe_gmm_cuda(xa, w),
+             lambda: ref.moe_gmm_ref(xa, w, active),
+             lambda: torch.bmm(xa, w))
+    ms, dense_ms, plain, lib_ms = (device_ms(torch, fn, 10) for fn in calls)
+    peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
+    n_bytes = (n_active * (C * D + D * F) + E * C * F) * x.element_size()
+    bms, by = bound_ms(n_bytes, 2.0 * n_active * C * D * F, peak)
+    emit({"phase": "kernel", "kernel": "moe_gmm", "case": label,
+          "x": [E, C, D], "w": [E, D, F], "dtype": str(dt),
+          "active": n_active, "equal_to_dense": True, "max_abs_err": err,
+          "tol": tol, "ms": ms, "dense_ms": dense_ms,
+          "active_ratio": ms / dense_ms, "plain_ms": plain, "bmm_ms": lib_ms,
+          "bmm_ratio": ms / lib_ms, "bound_ms": bms, "bound_by": by})
+    emit_kernel("moe_gmm", max_abs_err=err)
+
+
+def gmm_graph_case(torch, gen, tol, emit_kernel):
+    """One bfloat16 K7 launch with `active` captured in a CUDA graph (the
+    wrapper reads no device value on the host), replayed on new inputs
+    and new active sets copied into the captured tensors."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda
+    E, C, D, F = 64, 4, 2048, 1024
+    x = torch.zeros((E, C, D), dtype=torch.bfloat16, device="cuda")
+    w = torch.zeros((E, D, F), dtype=torch.bfloat16, device="cuda")
+    active = torch.ones(E, dtype=torch.bool, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            moe_gmm_cuda(x, w, active)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = moe_gmm_cuda(x, w, active)
+    errs = []
+    for n_active in (40, 17):
+        act = torch.zeros(E, dtype=torch.bool, device="cuda")
+        act[torch.randperm(E, generator=gen, device="cuda")[:n_active]] = True
+        active.copy_(act)
+        x.copy_(torch.randn(x.shape, generator=gen, device="cuda")
+                * act[:, None, None])
+        w.copy_(torch.randn(w.shape, generator=gen, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        err, ok = allclose(torch, out, ref.moe_gmm_ref(x, w, active), tol)
+        require(ok, f"moe_gmm in a CUDA graph ({n_active} active): max abs "
+                f"err {err} beyond {tol}")
+        require(bool((out[~act] == 0).all()), "moe_gmm in a CUDA graph: an "
+                "inactive expert's output is not zero")
+        errs.append(err)
+        emit_kernel("moe_gmm", max_abs_err=err)
+    emit({"phase": "kernel", "kernel": "moe_gmm",
+          "case": "[64,4,2048]@[64,2048,1024] with active, captured in a "
+                  "CUDA graph, two replays on new inputs and active sets",
+          "dtype": "torch.bfloat16", "max_abs_err": max(errs)})
+    del graph
 
 
 def watch_tokens(eng, on_token, on_call=None) -> None:
@@ -1121,8 +1260,11 @@ def reversed_sums(torch):
     versions with their float32 sums taken in another order."""
     from repro_torch.kernels import ref
 
-    def gmm(x, w):
-        return torch.bmm(x.float().flip(-1), w.float().flip(1)).to(x.dtype)
+    def gmm(x, w, active=None):
+        out = torch.bmm(x.float().flip(-1), w.float().flip(1))
+        if active is not None:
+            out = torch.where(active.bool()[:, None, None], out, 0.0)
+        return out.to(x.dtype)
 
     saved = ref.moe_gmm_ref
     ref.moe_gmm_ref = gmm

@@ -76,10 +76,13 @@ _PTR, _INT, _LONG, _FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
                              ctypes.c_float)
 _SIGNATURES = {
     "edge_rounds": {
-        "edge_rounds_launch": [_INT, _INT, _INT, _INT, _INT, _PTR, _PTR,
-                               _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
-                               _PTR, _INT, _LONG, _PTR, _PTR, _INT, _INT,
-                               _INT, _FLOAT, _INT, _PTR, _PTR, _PTR],
+        "edge_rounds_launch": [_INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
+                               _PTR, _PTR, _INT, _INT, _INT, _FLOAT, _INT,
+                               _PTR, _PTR],
+        "edge_rounds_bucketed_launch": [_INT, _INT, _INT] + [_PTR] * 10
+                                       + [_INT, _PTR, _PTR, _INT, _INT, _INT,
+                                          _PTR, _PTR, _INT, _INT, _INT,
+                                          _FLOAT, _INT, _PTR],
     },
     "simplex_project": {
         "simplex_project_launch": [_INT, _PTR, _PTR, _PTR, _PTR, _PTR,
@@ -99,8 +102,8 @@ _SIGNATURES = {
         "ssd_scan_launch": [_INT] + [_PTR] * 8 + [_INT] * 5 + [_PTR],
     },
     "moe_gmm": {
-        "moe_gmm_launch": [_INT, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                           _PTR],
+        "moe_gmm_launch": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                           _INT, _INT, _PTR],
     },
 }
 

@@ -15,30 +15,39 @@
 // an explicitly rounded __fmul_rn/__fadd_rn, so nothing is contracted
 // into an FMA.
 //
-// Design: one CTA per task row.  The row's state x and the next state
-// live in shared memory (2·V floats: 80 KB at V = 10^4), so the whole
-// early-exit loop runs in one launch and each round reads only the
+// K1 (padded): one CTA per task row.  The row's state x and the next
+// state live in shared memory (2·V floats: 8 KB at V = 1000), so the
+// whole early-exit loop runs in one launch and each round reads only the
 // weights, neighbour indices and masks from global memory / L2.  A row
 // stops as soon as ITS state stops changing (__syncthreads_or): rounds
 // past a row's exact fixed point reproduce it, so this equals the
 // reference's shared exit; the launch's round count is the max over
 // rows (taken by the wrapper).
 //
+// K2 (bucketed): one thread-block cluster of c CTAs per task row (c from
+// the shapes: 8 at ba_10000's S = 16, 4 for its stacked taint pair).
+// The row's bucket rows are cut into c ranges balanced by lanes; each
+// CTA keeps its rows' state and its lanes' weights, neighbours and masks
+// in shared memory for every round, and reads its neighbours' state from
+// the owners' shared memory (distributed shared memory); a cluster
+// barrier separates the rounds and the CTAs' change flags are OR-reduced
+// across the cluster.  So 128 SMs work at S = 16 instead of 16, and a
+// CTA holds a c-th of the state and tiles.
+//
 // Slot lanes: a node's padded width P (next pow2 of the tile width) is
 // split over a group of min(P, 32) lanes, lane l holding the slots
 // ≡ l (mod 32).  Lane-local fold first (the halvings with stride >= 32),
-// then __shfl_down_sync with offsets P/2 .. 1 inside the group.
+// then __shfl_down_sync with offsets P/2 .. 1 inside the group; K1 and K2
+// fold every node in this order, within one lane group.
 //
 // Bound: reading each input once, the roofline bound is set by the
 // operations (3 flops a lane a round, times the rounds the data needs)
-// or, for short fixed points, by the bytes of w, nbr and mask.  This
-// design instead re-reads w, nbr and mask from L2 every round, and a
-// round is a latency-bound sequence of passes of the CTA's 8 warps over
-// the V rows; only S CTAs run, so S of the 132 SMs work (16 on
-// ba_10000).  It is simple and exact, not fast: keeping the tiles in
-// shared memory or registers across rounds and spreading a task row over
-// several CTAs are the next steps.  A V beyond the shared-memory limit
-// is refused rather than served by a second path.
+// or, for short fixed points, by the bytes of w, nbr and mask.  Both
+// kernels are bound instead by a round's latency: K1's 8 warps pass over
+// the V rows with dependent L2 loads; K2's CTAs pass over a c-th of the
+// rows with shared and distributed shared loads, then meet at the
+// cluster barrier.  A V beyond what one CTA (K1) or the largest cluster
+// (K2) holds is refused rather than served by a second path.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -188,161 +197,379 @@ edge_rounds_kernel(const TW* __restrict__ w, const TB* __restrict__ b,
 }
 
 // ---------------------------------------------------------- bucketed (K2)
+// One thread-block cluster of c CTAs per task row: row s is cluster s,
+// rank r its r-th CTA.  The row's bucket rows, laid end to end, are cut
+// into c contiguous ranges balanced by lanes (kernels/edge_rounds.py:
+// cluster_plan, which also packs every lane's neighbour as owner rank |
+// owner-local row << 4).  Rank r owns the nodes of rows [row_start[r],
+// row_start[r+1]) and keeps, in its shared memory, their x, next x and
+// inject in row order, and its lanes' weights w[s, wsrc, wslot], packed
+// neighbours and masks, gathered once a launch and kept for every
+// round.  A round: each CTA folds its rows from the current x of any
+// rank (its own, or a peer's by ld.shared::cluster through mapa), writes
+// their next x into its own buffer, stores its change flag into every rank's flag slots, and
+// the cluster barrier (release / acquire) separates the Jacobi rounds.
+// 16 warps a CTA; 8 where a lane holds 32 slots (tiles wider than 512),
+// so that the fold's registers fit without spilling
+__host__ __device__ constexpr int k2_threads(int C) {
+    return C >= 32 ? 256 : 512;
+}
+constexpr int kMaxCluster = 16;
+constexpr int kMaxSegs = 32;      // buckets a launch may have
+
+size_t k2_smem_bytes(int rows_cap, int lanes_cap) {
+    return sizeof(float) * (3 * (size_t)rows_cap + 2 * (size_t)lanes_cap
+                            + 2 * kMaxCluster)
+        + sizeof(int4) * kMaxSegs + 16 + (size_t)lanes_cap;
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+    return r;
+}
+__device__ __forceinline__ unsigned cluster_ctas() {
+    unsigned n;
+    asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+    return n;
+}
+// every thread of every CTA of the cluster; orders shared memory writes
+// (local and remote) before it against reads after it
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+// the float at shared address `addr` of cluster rank `rank`
+__device__ __forceinline__ float ld_cluster(unsigned addr, unsigned rank) {
+    unsigned remote;
+    float v;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(remote) : "r"(addr), "r"(rank));
+    asm volatile("ld.shared::cluster.f32 %0, [%1];"
+                 : "=f"(v) : "r"(remote));
+    return v;
+}
+__device__ __forceinline__ void st_cluster(unsigned addr, unsigned rank,
+                                           int v) {
+    unsigned remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(remote) : "r"(addr), "r"(rank));
+    asm volatile("st.shared::cluster.s32 [%0], %1;"
+                 :: "r"(remote), "r"(v) : "memory");
+}
+// x of the node behind a packed neighbour: from this CTA's own x when it
+// owns the node, else from the owner's (`xa`: the shared address of this
+// round's x buffer, laid out alike on every rank)
+__device__ __forceinline__ float gather(const float* x, unsigned xa,
+                                        int loc, unsigned rank) {
+    const unsigned r = (unsigned)loc & 15u, off = (unsigned)(loc >> 4);
+    return r == rank ? x[off] : ld_cluster(xa + 4u * off, r);
+}
+
+// One round over one bucket's rows on this rank (`rows` rows of `width`
+// lanes from rank-local lane `lane0` and row `row0`): the fold of
+// tile_round (lane_fold, then the shuffles), on the tiles in shared
+// memory.
+template <bool kMax, int C>
+__device__ bool cluster_tile_round(int rows, int width, int lane0, int row0,
+                                   const float* __restrict__ wt,
+                                   const int* __restrict__ loc,
+                                   const uint8_t* __restrict__ mk,
+                                   const float* __restrict__ bl,
+                                   const float* __restrict__ x, unsigned xa,
+                                   unsigned rank, float* __restrict__ xn,
+                                   float shift) {
+    constexpr int kWarps2 = k2_threads(C) / 32;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    bool changed = false;
+    int P = 1;
+    while (P < width) P <<= 1;
+    if (P >= 32) {                      // one warp per row, C slots a lane
+        for (int r = warp; r < rows; r += kWarps2) {
+            float a[C];
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                const int e = lane + 32 * c;
+                a[c] = 0.0f;
+                if (e < width) {
+                    const int q = lane0 + r * width + e;
+                    a[c] = message(wt[q], mk[q] != 0,
+                                   gather(x, xa, loc[q], rank), shift);
+                }
+            }
+            float v = lane_fold<kMax, C>(a);
+#pragma unroll
+            for (int off = 16; off >= 1; off >>= 1)
+                v = op<kMax>(v, __shfl_down_sync(kFull, v, off));
+            if (lane == 0) {
+                const int i = row0 + r;
+                const float y = op<kMax>(bl[i], v);
+                changed |= (y != x[i]);
+                xn[i] = y;
+            }
+        }
+    } else {                            // 32/P rows a warp, one slot a lane
+        const int per_warp = 32 / P;
+        const int sub = lane / P, e = lane % P;
+        for (int r0 = warp * per_warp; r0 < rows;
+             r0 += kWarps2 * per_warp) {
+            const int r = r0 + sub;
+            float v = 0.0f;
+            if (r < rows && e < width) {
+                const int q = lane0 + r * width + e;
+                v = message(wt[q], mk[q] != 0, gather(x, xa, loc[q], rank),
+                            shift);
+            }
+            for (int off = P / 2; off >= 1; off >>= 1)
+                v = op<kMax>(v, __shfl_down_sync(kFull, v, off, P));
+            if (e == 0 && r < rows) {
+                const int i = row0 + r;
+                const float y = op<kMax>(bl[i], v);
+                changed |= (y != x[i]);
+                xn[i] = y;
+            }
+        }
+    }
+    return changed;
+}
+
 // Buckets in CSR form: bucket k owns rows [row_off[k], row_off[k+1]) of
-// `nodes` and lanes [lane_off[k], lane_off[k+1]) of nbr/wsrc/wslot/mask,
-// as a [rows_k, width[k]] tile.
+// `nodes` and lanes [lane_off[k], lane_off[k+1]) of loc/wsrc/wslot/mask,
+// as a [rows_k, width[k]] tile; rank r owns rows [row_start[r],
+// row_start[r+1]) and lanes [lane_start[r], lane_start[r+1]).
 template <bool kMax, int C, class TW, class TB, class TO>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(k2_threads(C), 1)
 edge_rounds_bucketed_kernel(
         const TW* __restrict__ w, const TB* __restrict__ b,
-        const int* __restrict__ nodes, const int* __restrict__ nbr,
+        const int* __restrict__ nodes, const int* __restrict__ loc,
         const int* __restrict__ wsrc, const int* __restrict__ wslot,
         const uint8_t* __restrict__ mask, const int* __restrict__ row_off,
         const long* __restrict__ lane_off, const int* __restrict__ width,
-        int n_buckets, long lanes, TO* __restrict__ out,
+        int n_buckets, const int* __restrict__ row_start,
+        const long* __restrict__ lane_start, TO* __restrict__ out,
         int* __restrict__ rounds, int V, int D, float shift, int max_rounds,
-        float* __restrict__ b32, float* __restrict__ wtile) {
-    extern __shared__ float smem[];
-    const int s = blockIdx.x;
-    float* x = smem;
-    float* xn = smem + V;
-    float* b_row = b32 + (long)s * V;
-    float* wt_row = wtile + (long)s * lanes;
+        int rows_cap, int lanes_cap) {
+    constexpr int kThreads2 = k2_threads(C);
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const unsigned n_ranks = cluster_ctas(), rank = cluster_rank();
+    const int s = blockIdx.x / n_ranks, tid = threadIdx.x;
+    const int R0 = row_start[rank], n_rows = row_start[rank + 1] - R0;
+    const long L0 = lane_start[rank];
+    const int n_lanes = (int)(lane_start[rank + 1] - L0);
+    // rows_cap and lanes_cap are multiples of 4: every part 16-byte aligned
+    float* x = reinterpret_cast<float*>(smem_raw);   // [rows_cap]
+    float* xn = x + rows_cap;                         // [rows_cap]
+    float* bl = xn + rows_cap;                        // [rows_cap]
+    float* wt = bl + rows_cap;                        // [lanes_cap]
+    int* lc = reinterpret_cast<int*>(wt + lanes_cap); // [lanes_cap]
+    int* flags = lc + lanes_cap;                      // [2][kMaxCluster]
+    // one bucket's rows on this rank: (rows, width, first lane, first row)
+    int4* segs = reinterpret_cast<int4*>(flags + 2 * kMaxCluster);
+    int* n_segs = reinterpret_cast<int*>(segs + kMaxSegs);
+    uint8_t* mk = reinterpret_cast<uint8_t*>(n_segs + 4); // [lanes_cap]
+
     const TW* w_row = w + (long)s * V * D;
-    for (int i = threadIdx.x; i < V; i += blockDim.x) {
-        float bi = load_f(b, (long)s * V + i);
-        b_row[i] = bi;
+    for (int i = tid; i < n_rows; i += kThreads2) {
+        const float bi = load_f(b, (long)s * V + nodes[R0 + i]);
+        bl[i] = bi;
         x[i] = bi;
     }
-    // the weight tile w[s, wsrc, wslot], gathered once for all rounds
-    for (long q = threadIdx.x; q < lanes; q += blockDim.x)
-        wt_row[q] = load_f(w_row, (long)wsrc[q] * D + wslot[q]);
-    __syncthreads();
-    auto wt = [wt_row](long q) { return wt_row[q]; };
-
-    auto one_round = [&]() {
-        bool ch = false;
-        for (int kb = 0; kb < n_buckets; ++kb) {
-            const int r0 = row_off[kb];
-            const int* nodes_b = nodes + r0;
-            auto node = [nodes_b](int r) { return nodes_b[r]; };
-            ch |= tile_round<kMax, C>(row_off[kb + 1] - r0, width[kb],
-                                      lane_off[kb], nbr, mask, wt, node,
-                                      b_row, x, xn, shift);
-        }
-        return ch;
-    };
-    int k = 1;
-    int any = __syncthreads_or(one_round());
-    while (k < max_rounds && any) {
-        float* t = x; x = xn; xn = t;
-        bool ch = one_round();
-        ++k;
-        any = __syncthreads_or(ch);
+    for (int q = tid; q < n_lanes; q += kThreads2) {
+        const long g = L0 + q;
+        wt[q] = load_f(w_row, (long)wsrc[g] * D + wslot[g]);
+        lc[q] = loc[g];
+        mk[q] = mask[g];
     }
-    for (int i = threadIdx.x; i < V; i += blockDim.x)
-        store_f(out, (long)s * V + i, xn[i]);
-    if (threadIdx.x == 0) rounds[s] = k;
+    if (tid < 2 * kMaxCluster) flags[tid] = 0;
+    if (tid == 0) {
+        int n = 0;
+        for (int kb = 0; kb < n_buckets; ++kb) {
+            const int ra = max(row_off[kb], R0);
+            const int rb = min(row_off[kb + 1], R0 + n_rows);
+            if (ra < rb)
+                segs[n++] = make_int4(rb - ra, width[kb],
+                                      (int)(lane_off[kb]
+                                            + (long)(ra - row_off[kb])
+                                              * width[kb] - L0),
+                                      ra - R0);
+        }
+        *n_segs = n;
+    }
+    cluster_sync();       // every rank's x and flags set before any read
+    const int nseg = *n_segs;
+
+    int k = 0, par = 0;
+    for (;;) {
+        const unsigned xa = smem_addr(x);
+        bool ch = false;
+        for (int g = 0; g < nseg; ++g) {
+            const int4 sg = segs[g];
+            ch |= cluster_tile_round<kMax, C>(sg.x, sg.y, sg.z, sg.w, wt, lc,
+                                              mk, bl, x, xa, rank, xn, shift);
+        }
+        ++k;
+        const int any_cta = __syncthreads_or(ch);
+        if (tid < (int)n_ranks)
+            st_cluster(smem_addr(flags + par * kMaxCluster + rank), tid,
+                       any_cta);
+        cluster_sync();   // this round's xn and flags visible everywhere
+        int any = 0;
+        for (unsigned r = 0; r < n_ranks; ++r)
+            any |= flags[par * kMaxCluster + r];
+        par ^= 1;
+        if (!any || k >= max_rounds) break;
+        float* t = x; x = xn; xn = t;
+    }
+    for (int i = tid; i < n_rows; i += kThreads2)
+        store_f(out, (long)s * V + nodes[R0 + i], xn[i]);
+    if (rank == 0 && tid == 0) rounds[s] = k;
+    cluster_sync();       // no CTA leaves while a peer may address it
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16 (w and b share one; the wrapper
 // widens a bf16 operand paired with an f32 one, which is exact)
 template <bool kMax, int C, class TW, class TB, class TO>
-cudaError_t launch_typed(bool bucketed, const void* w, const void* b,
-                         const int* nodes, const int* nbr, const int* wsrc,
-                         const int* wslot, const uint8_t* mask,
-                         const int* row_off, const long* lane_off,
-                         const int* width, int n_buckets, long lanes,
-                         void* out, int* rounds, int S, int V, int D,
-                         float shift, int max_rounds, float* b32,
-                         float* wtile, cudaStream_t stream) {
+cudaError_t launch_padded(const void* w, const void* b, const int* nbr,
+                          const uint8_t* mask, void* out, int* rounds, int S,
+                          int V, int D, float shift, int max_rounds,
+                          float* b32, cudaStream_t stream) {
     size_t smem = 2 * sizeof(float) * (size_t)V;
-    if (bucketed) {
-        auto kern = edge_rounds_bucketed_kernel<kMax, C, TW, TB, TO>;
-        cudaError_t e = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return e;
-        kern<<<S, kThreads, smem, stream>>>(
-            (const TW*)w, (const TB*)b, nodes, nbr, wsrc, wslot, mask,
-            row_off, lane_off, width, n_buckets, lanes, (TO*)out, rounds, V,
-            D, shift, max_rounds, b32, wtile);
-    } else {
-        auto kern = edge_rounds_kernel<kMax, C, TW, TB, TO>;
-        cudaError_t e = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return e;
-        kern<<<S, kThreads, smem, stream>>>(
-            (const TW*)w, (const TB*)b, nbr, mask, (TO*)out, rounds, V, D,
-            shift, max_rounds, b32);
-    }
+    auto kern = edge_rounds_kernel<kMax, C, TW, TB, TO>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    kern<<<S, kThreads, smem, stream>>>(
+        (const TW*)w, (const TB*)b, nbr, mask, (TO*)out, rounds, V, D,
+        shift, max_rounds, b32);
     return cudaGetLastError();
 }
 
-template <bool kMax, int C>
-cudaError_t launch_dtypes(int w_dt, int b_dt, bool bucketed, const void* w,
-                          const void* b, const int* nodes, const int* nbr,
-                          const int* wsrc, const int* wslot,
-                          const uint8_t* mask, const int* row_off,
-                          const long* lane_off, const int* width,
-                          int n_buckets, long lanes, void* out, int* rounds,
-                          int S, int V, int D, float shift, int max_rounds,
-                          float* b32, float* wtile, cudaStream_t stream) {
-#define ER_ARGS bucketed, w, b, nodes, nbr, wsrc, wslot, mask, row_off, \
-    lane_off, width, n_buckets, lanes, out, rounds, S, V, D, shift,     \
-    max_rounds, b32, wtile, stream
-    if (w_dt == 0 && b_dt == 0)
-        return launch_typed<kMax, C, float, float, float>(ER_ARGS);
-    if (w_dt == 1 && b_dt == 1)
-        return launch_typed<kMax, C, __nv_bfloat16, __nv_bfloat16,
-                            __nv_bfloat16>(ER_ARGS);
-#undef ER_ARGS
-    return cudaErrorInvalidValue;
+struct BucketArgs {
+    const int *nodes, *loc, *wsrc, *wslot;
+    const uint8_t* mask;
+    const int* row_off;
+    const long* lane_off;
+    const int* width;
+    int n_buckets;
+    const int* row_start;
+    const long* lane_start;
+    int cluster, rows_cap, lanes_cap;
+};
+
+template <bool kMax, int C, class TW, class TB, class TO>
+cudaError_t launch_bucketed(const void* w, const void* b,
+                            const BucketArgs& a, void* out, int* rounds,
+                            int S, int V, int D, float shift, int max_rounds,
+                            cudaStream_t stream) {
+    auto kern = edge_rounds_bucketed_kernel<kMax, C, TW, TB, TO>;
+    const size_t smem = k2_smem_bytes(a.rows_cap, a.lanes_cap);
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    if (a.cluster > 8) {
+        e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return e;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(S * a.cluster), 1, 1);
+    cfg.blockDim = dim3(k2_threads(C), 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)a.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, kern, (const TW*)w, (const TB*)b, a.nodes,
+                           a.loc, a.wsrc, a.wslot, a.mask, a.row_off,
+                           a.lane_off, a.width, a.n_buckets, a.row_start,
+                           a.lane_start, (TO*)out, rounds, V, D, shift,
+                           max_rounds, a.rows_cap, a.lanes_cap);
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
 }
 
 }  // namespace
 
+// dispatch on reduce (M), slots a lane (cw: 1..32) and dtype (dt);
+// LAUNCH is a function template <kMax, C, TW, TB, TO>
+#define ER_DTYPES(LAUNCH, M, C, ...)                                      \
+    if (dt == 0)                                                          \
+        return (int)LAUNCH<M, C, float, float, float>(__VA_ARGS__);       \
+    if (dt == 1)                                                          \
+        return (int)LAUNCH<M, C, __nv_bfloat16, __nv_bfloat16,            \
+                           __nv_bfloat16>(__VA_ARGS__);                   \
+    return (int)cudaErrorInvalidValue;
+#define ER_WIDTHS(LAUNCH, M, ...)                                         \
+    switch (cw) {                                                         \
+        case 1: { ER_DTYPES(LAUNCH, M, 1, __VA_ARGS__) }                  \
+        case 2: { ER_DTYPES(LAUNCH, M, 2, __VA_ARGS__) }                  \
+        case 4: { ER_DTYPES(LAUNCH, M, 4, __VA_ARGS__) }                  \
+        case 8: { ER_DTYPES(LAUNCH, M, 8, __VA_ARGS__) }                  \
+        case 16: { ER_DTYPES(LAUNCH, M, 16, __VA_ARGS__) }                \
+        case 32: { ER_DTYPES(LAUNCH, M, 32, __VA_ARGS__) }                \
+        default: return (int)cudaErrorInvalidValue;                       \
+    }
+#define ER_DISPATCH(LAUNCH, ...)                                          \
+    if (reduce_max) {                                                     \
+        ER_WIDTHS(LAUNCH, true, __VA_ARGS__)                              \
+    } else {                                                              \
+        ER_WIDTHS(LAUNCH, false, __VA_ARGS__)                             \
+    }
+
 extern "C" {
 
-// One launch of the padded (bucketed = 0) or bucketed (bucketed = 1)
-// fixed point.  `cw` is the lanes-per-row count of the widest tile
-// rounded up to a power of two divided by 32 (1 when narrower); the
-// wrapper computes it.  b32 is [S, V] f32 scratch, wtile [S, lanes] f32
-// scratch (bucketed only).  Returns cudaGetLastError() of the launch.
-int edge_rounds_launch(int reduce_max, int cw, int w_dt, int b_dt,
-                       int bucketed, const void* w, const void* b,
-                       const void* nodes, const void* nbr, const void* wsrc,
-                       const void* wslot, const void* mask,
-                       const void* row_off, const void* lane_off,
-                       const void* width, int n_buckets, long lanes,
+// One launch of the padded fixed point (K1), one CTA per task row.  `cw`
+// is the lanes-per-row count of the tile rounded up to a power of two
+// divided by 32 (1 when narrower); the wrapper computes it.  `dt` is the
+// dtype code of w and b; b32 is [S, V] f32 scratch.  Returns
+// cudaGetLastError() of the launch.
+int edge_rounds_launch(int reduce_max, int cw, int dt, const void* w,
+                       const void* b, const void* nbr, const void* mask,
                        void* out, void* rounds, int S, int V, int D,
-                       float shift, int max_rounds, void* b32, void* wtile,
+                       float shift, int max_rounds, void* b32,
                        void* stream) {
-#define ER_CALL(M, C)                                                     \
-    return (int)launch_dtypes<M, C>(                                      \
-        w_dt, b_dt, bucketed != 0, w, b, (const int*)nodes,               \
-        (const int*)nbr, (const int*)wsrc, (const int*)wslot,             \
-        (const uint8_t*)mask, (const int*)row_off, (const long*)lane_off, \
-        (const int*)width, n_buckets, lanes, out, (int*)rounds, S, V, D,  \
-        shift, max_rounds, (float*)b32, (float*)wtile,                    \
-        (cudaStream_t)stream)
-#define ER_WIDTHS(M)                       \
-    switch (cw) {                          \
-        case 1: ER_CALL(M, 1);             \
-        case 2: ER_CALL(M, 2);             \
-        case 4: ER_CALL(M, 4);             \
-        case 8: ER_CALL(M, 8);             \
-        case 16: ER_CALL(M, 16);           \
-        case 32: ER_CALL(M, 32);           \
-        default: return (int)cudaErrorInvalidValue; \
-    }
-    if (reduce_max) {
-        ER_WIDTHS(true)
-    } else {
-        ER_WIDTHS(false)
-    }
+    ER_DISPATCH(launch_padded, w, b, (const int*)nbr, (const uint8_t*)mask,
+                out, (int*)rounds, S, V, D, shift, max_rounds, (float*)b32,
+                (cudaStream_t)stream)
     return (int)cudaErrorInvalidValue;
-#undef ER_WIDTHS
-#undef ER_CALL
+}
+
+// One launch of the bucketed fixed point (K2), one cluster of `cluster`
+// CTAs (1, 2, 4, 8 or 16) per task row, on the rank plan of
+// kernels/edge_rounds.py:cluster_plan (row_start, lane_start [cluster+1],
+// loc [lanes]; rows_cap and lanes_cap, multiples of 4, the most rows and
+// lanes of a rank).  Returns the launch's error, or cudaGetLastError().
+int edge_rounds_bucketed_launch(
+        int reduce_max, int cw, int dt, const void* w, const void* b,
+        const void* nodes, const void* loc, const void* wsrc,
+        const void* wslot, const void* mask, const void* row_off,
+        const void* lane_off, const void* width, int n_buckets,
+        const void* row_start, const void* lane_start, int cluster,
+        int rows_cap, int lanes_cap, void* out, void* rounds, int S, int V,
+        int D, float shift, int max_rounds, void* stream) {
+    if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1))
+            || n_buckets > kMaxSegs || rows_cap % 4 || lanes_cap % 4)
+        return (int)cudaErrorInvalidValue;
+    const BucketArgs a{(const int*)nodes, (const int*)loc, (const int*)wsrc,
+                       (const int*)wslot, (const uint8_t*)mask,
+                       (const int*)row_off, (const long*)lane_off,
+                       (const int*)width, n_buckets, (const int*)row_start,
+                       (const long*)lane_start, cluster, rows_cap,
+                       lanes_cap};
+    ER_DISPATCH(launch_bucketed, w, b, a, out, (int*)rounds, S, V, D, shift,
+                max_rounds, (cudaStream_t)stream)
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"
+
+#undef ER_DISPATCH
+#undef ER_WIDTHS
+#undef ER_DTYPES

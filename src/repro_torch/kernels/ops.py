@@ -167,9 +167,11 @@ def ssd_scan(x, dt, A, Bm, Cm, init_state=None, chunk: int = 256,
     return ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=init_state)
 
 
-def moe_gmm(x, w, impl: Optional[str] = None):
+def moe_gmm(x, w, impl: Optional[str] = None, active=None):
     """Grouped expert matmul: x [E, C, D] @ w [E, D, F] -> [E, C, F] in
-    x's dtype, float32 sums over D; any E, C, D and F."""
+    x's dtype, float32 sums over D; any E, C, D and F.  `active` ([E]
+    bool or int32, on x's device) marks the experts that hold a row: the
+    others' outputs are zero and their weights are not read."""
     if _pick(impl, x) == "ref":
-        return _ref.moe_gmm_ref(x, w)
-    return moe_gmm_cuda(x, w)
+        return _ref.moe_gmm_ref(x, w, active)
+    return moe_gmm_cuda(x, w, active)

@@ -28,7 +28,8 @@ package's `kernels/ref.py` and `core/sgp.py:project_rows`:
   float32 rounding.
 * `moe_gmm_ref` is the grouped expert matmul of the MoE layer: float32
   sums over D, one cast to x's dtype, as the Pallas kernel and the JAX
-  package's `moe_gmm_ref`.
+  package's `moe_gmm_ref`, with the outputs of the experts that
+  `active` leaves out set to zero.
 """
 from __future__ import annotations
 
@@ -224,7 +225,11 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, init_state=None, chunk: int = 256):
                        init_state=init_state)
 
 
-def moe_gmm_ref(x, w) -> torch.Tensor:
+def moe_gmm_ref(x, w, active=None) -> torch.Tensor:
     """x [E, C, D] @ w [E, D, F] -> [E, C, F]: float32 sums, cast to x's
-    dtype."""
-    return torch.bmm(x.float(), w.float()).to(x.dtype)
+    dtype; zero for the experts that `active` ([E]; None keeps every
+    expert) leaves out."""
+    out = torch.bmm(x.float(), w.float())
+    if active is not None:
+        out = torch.where(active.bool()[:, None, None], out, 0.0)
+    return out.to(x.dtype)

@@ -13,7 +13,10 @@ gate, group-local capacity-bounded dispatch, SwiGLU experts.
   any second choice; an assignment at position >= C is dropped.  Counts
   are taken before the drops.
 * The three expert products go through `kernels.ops.moe_gmm` (K7): the
-  Hopper kernel on the card, `moe_gmm_ref` on the CPU.
+  Hopper kernel on the card, `moe_gmm_ref` on the CPU.  They are told
+  which experts hold a row (`counts > 0`; an expert with no assignment
+  has only zero rows, and silu(0)·0 = 0 in the down projection), so the
+  kernel reads no weight of an empty expert: the same function.
 * The new state is `0.9·load_ema + 0.1·counts`.
 
 The custom VJPs of the JAX layer (training) come with ROADMAP P13d.
@@ -115,9 +118,11 @@ def moe(p, state: dict, x: torch.Tensor, cfg, impl: Optional[str] = None):
     buf = xc[torch.arange(G, device=dev)[:, None, None],
              slot_tok.clamp_max(Tg - 1)] * valid[..., None]  # [G, E, C, D]
     buf = buf.transpose(0, 1).reshape(E, G * C, D)
-    g = ops.moe_gmm(buf, p["wg"], impl=impl)
-    u = ops.moe_gmm(buf, p["wu"], impl=impl)
-    out = ops.moe_gmm(F.silu(g) * u, p["wd"], impl=impl)  # [E, G·C, D]
+    active = counts > 0
+    g = ops.moe_gmm(buf, p["wg"], impl=impl, active=active)
+    u = ops.moe_gmm(buf, p["wu"], impl=impl, active=active)
+    out = ops.moe_gmm(F.silu(g) * u, p["wd"], impl=impl,
+                      active=active)                       # [E, G·C, D]
     out = out.reshape(E, G, C, D).transpose(0, 1)          # [G, E, C, D]
     slots = out[g_idx, top_idx, torch.where(keep, pos, 0)]  # [G, Tg, K, D]
     w = (gate * keep).to(cd)

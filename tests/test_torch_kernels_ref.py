@@ -9,6 +9,7 @@ bfloat16, atol 1e-6 for the QP rows against the oracle, 1e-4 against
 the Pallas QP body (it bisects in division form, see its docstring).
 Padded ≡ bucketed and stacked ≡ unstacked hold bitwise inside the port.
 """
+import dataclasses
 import functools
 import subprocess
 import sys
@@ -24,6 +25,7 @@ from repro.core.sgp import project_rows
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import core as tcore
+from repro_torch.kernels import edge_rounds as er_mod
 from repro_torch.kernels import ops, ref
 
 torch.set_num_threads(1)
@@ -290,6 +292,150 @@ def test_pallas_interpret_edge_rounds_and_bucketed():
     np.testing.assert_allclose(
         ops.edge_rounds_bucketed(torch.from_numpy(w), torch.from_numpy(b),
                                  bk.out).numpy(), np.asarray(k2), **F32)
+
+
+# --------------------------------------------- K2's cluster plan (card)
+def _cluster_rounds(w, b, eb, plan, reduce, shift, max_rounds):
+    """A transcription of K2's partitioned round (`csrc/edge_rounds.cu`,
+    edge_rounds_bucketed_kernel): rank r holds the state of its rows
+    [row_start[r], row_start[r+1]) in row order; each round every rank
+    folds its bucket rows from the previous round's state of whichever
+    rank owns each neighbour (the plan's packed `loc`) and writes its
+    own rows' next state; the barrier is the next round reading only
+    what this one wrote.  Returns (x [S, V], rounds)."""
+    combine = ref._combine(reduce)
+    c = plan.size
+    rs, rows = plan.row_start.tolist(), eb.row_off.tolist()
+    lanes = eb.lane_off.tolist()
+    owner, local = (plan.loc & 15).long(), (plan.loc >> 4).long()
+    wf, bf = w.float(), b.float()
+    S, cap = w.shape[0], max(plan.rows_cap, 1)
+    x0 = torch.zeros((S, c, cap))
+    for r in range(c):
+        x0[:, r, :rs[r + 1] - rs[r]] = bf[:, eb.nodes[rs[r]:rs[r + 1]].long()]
+    segs = []                      # (rank, local rows, lanes, width)
+    for r in range(c):
+        for k, Db in enumerate(eb.widths):
+            ra, rb = max(rows[k], rs[r]), min(rows[k + 1], rs[r + 1])
+            if ra < rb:
+                q0 = lanes[k] + (ra - rows[k]) * Db
+                segs.append((r, slice(ra - rs[r], rb - rs[r]),
+                             slice(q0, q0 + (rb - ra) * Db), Db,
+                             eb.nodes[ra:rb].long()))
+
+    def step(x):
+        y = torch.zeros_like(x)
+        for r, lr, q, Db, nodes in segs:
+            def tile(t):
+                return t[q].long().reshape(-1, Db)
+            wt = torch.where(tile(eb.mask) > 0,
+                             wf[:, tile(eb.wsrc), tile(eb.wslot)], 0.0)
+            xj = x[:, tile(owner), tile(local)]
+            red = ref.fold_reduce(wt * (xj + shift), reduce)
+            y[:, r, lr] = combine(bf[:, nodes], red)
+        return y
+
+    x, k = ref.fixed_point(step, x0, max_rounds)
+    out = torch.empty_like(bf)
+    for r in range(c):
+        out[:, eb.nodes[rs[r]:rs[r + 1]].long()] = x[:, r, :rs[r + 1] - rs[r]]
+    return out, k
+
+
+def _sw_adj(V=150, seed=4):
+    return tcore.topologies.small_world(V=V, n_short=V, n_long=V,
+                                        seed=seed)
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+def test_cluster_plan_covers_every_lane_and_node_once(c):
+    """K2's rank plan splits both bucket sets of a BA and an SW graph
+    into contiguous row ranges whose lanes follow them, balanced by lanes
+    to within the widest row, and packs every lane's neighbour as its
+    owner rank and the row it holds there."""
+    for adj in (_ba_adj(), _sw_adj()):
+        bk = tcore.build_buckets(adj, device="cpu")
+        for eb in (bk.out, bk.inn):
+            plan = er_mod.cluster_plan(eb, c)
+            assert plan.size == c
+            rs, ls = plan.row_start.long(), plan.lane_start
+            assert rs[0] == 0 and rs[-1] == eb.nodes.numel()
+            assert ls[0] == 0 and ls[-1] == eb.lanes
+            assert bool((rs[1:] >= rs[:-1]).all())
+            row_lane = torch.cat([
+                eb.lane_off[k] + torch.arange(eb.row_off[k + 1]
+                                              - eb.row_off[k]) * Db
+                for k, Db in enumerate(eb.widths)]
+                + [torch.tensor([eb.lanes])])
+            assert torch.equal(ls, row_lane[rs])
+            assert int((ls[1:] - ls[:-1]).max()) <= plan.lanes_cap
+            assert int((rs[1:] - rs[:-1]).max()) <= plan.rows_cap
+            assert plan.rows_cap % 4 == 0 == plan.lanes_cap % 4
+            assert int((ls[1:] - ls[:-1]).max()) \
+                <= -(-eb.lanes // c) + max(eb.widths)
+            # every node is one rank's row, every lane one rank's lane
+            owner_of_row = torch.bucketize(torch.arange(eb.nodes.numel()),
+                                           rs[1:], right=True)
+            owner = torch.empty(eb.nodes.numel(), dtype=torch.long)
+            local = torch.empty_like(owner)
+            owner[eb.nodes.long()] = owner_of_row
+            local[eb.nodes.long()] = torch.arange(eb.nodes.numel()) \
+                - rs[owner_of_row]
+            assert torch.equal(torch.sort(eb.nodes.long()).values,
+                               torch.arange(eb.nodes.numel()))
+            nbr = eb.nbr.long()
+            assert torch.equal((plan.loc & 15).long(), owner[nbr])
+            assert torch.equal((plan.loc >> 4).long(), local[nbr])
+            assert er_mod.cluster_plan(eb, c) is plan
+
+
+@pytest.mark.parametrize("reduce,shift", BUCKET_CASES)
+def test_cluster_transcription_bitwise(reduce, shift):
+    """The transcription of K2's partitioned round on the rank plans of
+    c in {2, 8} equals the plain bucketed version bit for bit (values
+    and rounds) on BA and SW graphs, in both edge directions, and the
+    JAX package's bucketed reference at float32 tolerance."""
+    for adj in (_ba_adj(), _sw_adj()):
+        nb = tcore.build_neighbors(adj, device="cpu")
+        bk = tcore.build_buckets(adj, device="cpu")
+        w, b = _weights(nb, 3, 21)
+        if reduce == "max":
+            w, b = (w > 0.2).astype(np.float32), (b > 0.9).astype(np.float32)
+        tw, tb = torch.from_numpy(w), torch.from_numpy(b)
+        for eb, c in ((bk.out, 8), (bk.inn, 2)):
+            want, kw = ref.edge_rounds_bucketed_ref(tw, tb, eb, reduce,
+                                                    shift, nb.V)
+            got, k = _cluster_rounds(tw, tb, eb, er_mod.cluster_plan(eb, c),
+                                     reduce, shift, nb.V)
+            assert torch.equal(got, want) and k == kw
+    w, b = _bucket_inputs(reduce)
+    bk = tcore.build_buckets(_ba_adj(), device="cpu")
+    got, _ = _cluster_rounds(torch.from_numpy(w), torch.from_numpy(b),
+                             bk.out, er_mod.cluster_plan(bk.out, 4), reduce,
+                             shift, w.shape[1])
+    np.testing.assert_allclose(got.numpy(),
+                               _bucketed_references()[(reduce, shift)], **F32)
+
+
+def test_cluster_size_from_shapes(monkeypatch):
+    """c from S and the lanes alone: 8 CTAs a row at ba_10000's S = 16
+    (128 CTAs), 4 for its stacked taint pair, fewer on small graphs;
+    a plan that cannot fit doubles c, then is refused."""
+    assert er_mod.cluster_size(16, 50030) == 8
+    assert er_mod.cluster_size(32, 50030) == 4
+    assert er_mod.cluster_size(64, 50030) == 2
+    assert er_mod.cluster_size(200, 50030) == 1
+    assert er_mod.cluster_size(1, 3000) == 2
+    assert er_mod.max_nodes() == 29056
+    assert er_mod.max_nodes(bucketed=True) == 16 * 232448 // 12
+    eb = tcore.build_buckets(_ba_adj(), device="cpu").out
+    monkeypatch.setattr(er_mod, "_SMEM_BYTES", er_mod.k2_smem_bytes(
+        -(-eb.nodes.numel() // 8) + 4, -(-eb.lanes // 4) + 4))
+    plan = er_mod.cluster_plan(dataclasses.replace(eb, plans={}), 1)
+    assert plan.size > 1 and plan.smem_bytes <= er_mod._SMEM_BYTES
+    monkeypatch.setattr(er_mod, "_SMEM_BYTES", er_mod.k2_smem_bytes(0, 0))
+    with pytest.raises(ValueError, match="no second path"):
+        er_mod.cluster_plan(dataclasses.replace(eb, plans={}), 1)
 
 
 def test_dispatch_shape_checks_and_impl():

@@ -62,6 +62,7 @@ from repro_torch import configs
 from repro_torch.convert import (lm_leaf_dtypes, lm_params_from_numpy,
                                  lm_params_from_tensors, lm_state_from_numpy)
 from repro_torch.core import moe_bridge
+from repro_torch.kernels import moe_gmm as gmm_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.launch.serve import load_model, main as serve_main
 from repro_torch.models import build_model, module
@@ -160,6 +161,42 @@ def test_moe_gmm_ref_matches_reference(case, dtype):
     exact = np.einsum("ecd,edf->ecf", _t(x).to(tdt).double().numpy(),
                       _t(w).to(tdt).double().numpy())
     _close(got.float(), exact, scaled=True, tol=tol)
+
+
+@pytest.mark.parametrize("adtype", [torch.bool, torch.int32])
+def test_moe_gmm_active_zeroes_the_empty_experts(adtype):
+    """`active` sets the outputs of the experts it leaves out to zero and
+    leaves the others equal to the dense product, bit for bit."""
+    x, w = (_t(a) for a in _gmm_inputs((6, 5, 24, 16), 3))
+    active = torch.tensor([1, 0, 1, 1, 0, 0]).to(adtype)
+    dense = ops.moe_gmm(x, w, impl="ref")
+    got = ops.moe_gmm(x, w, impl="ref", active=active)
+    on = active.bool()
+    assert torch.equal(got[on], dense[on])
+    assert not got[~on].any() and dense[~on].abs().min() > 0
+    assert torch.equal(ops.moe_gmm(x, w, impl="ref", active=None), dense)
+
+
+@pytest.mark.parametrize("E,C,F,ctas", [(64, 4, 1024, 264), (64, 80, 2048, 264),
+                                        (3, 200, 40, 5), (5, 7, 64, 132)])
+def test_moe_gmm_schedule_covers_every_tile_once(E, C, F, ctas):
+    """K7's persistent schedule deals each (expert, 128 rows, 64 or 128
+    columns) tile of the active experts to exactly one CTA, CTAs
+    differing by at most one tile; the inactive experts get none."""
+    rng = np.random.RandomState(E + C)
+    bn = gmm_mod.tile_width(C, tensor_cores=True)
+    assert bn == (64 if C <= 16 else 128)
+    assert gmm_mod.tile_width(C, tensor_cores=False) == 64
+    for active in (None, rng.rand(E) < 0.6):
+        plan = gmm_mod.tile_schedule(E, C, F, active, ctas, bn)
+        assert len(plan) == ctas
+        tiles = [t for cta in plan for t in cta]
+        experts = [e for e in range(E) if active is None or active[e]]
+        want = {(e, r, n) for e in experts for r in range(0, C, 128)
+                for n in range(0, F, bn)}
+        assert len(tiles) == len(want) and set(tiles) == want
+        sizes = [len(cta) for cta in plan]
+        assert max(sizes) - min(sizes) <= 1
 
 
 # ------------------------------------------------------------ moe_bridge
@@ -317,6 +354,29 @@ def test_topk_ties_take_the_lower_expert():
 
 
 # ---------------------------------------------------------------- the LM
+@pytest.mark.parametrize("case", LAYER_CASES)
+def test_moe_layer_active_experts_change_nothing(case, monkeypatch):
+    """The layer's products told which experts hold a row give the same
+    y, state and metrics, bit for bit, as the dense products: an expert
+    with no assignment has only zero rows."""
+    cfg, params, x, ema = _layer_inputs(*case)
+    p = {k: _t(v) for k, v in params.items()}
+    seen = []
+
+    def dense(x, w, impl=None, active=None):
+        seen.append(active)
+        return ref.moe_gmm_ref(x, w)
+    got = moel.moe(p, {"load_ema": _t(ema)}, _t(x), cfg)
+    monkeypatch.setattr(moel.ops, "moe_gmm", dense)
+    want = moel.moe(p, {"load_ema": _t(ema)}, _t(x), cfg)
+    assert len(seen) == 3 and all(a is not None for a in seen)
+    assert 0 < int(seen[0].sum()) <= cfg.n_experts
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1]["load_ema"], want[1]["load_ema"])
+    for k in got[2]:
+        assert torch.equal(got[2][k], want[2][k])
+
+
 @pytest.fixture(scope="module")
 def pair():
     model = load_model(CFG, seed=1, device="cpu")

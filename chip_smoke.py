@@ -8,12 +8,16 @@
    and each source's registers and spills.
 2. Holds every kernel against its plain PyTorch version on the card, at
    the shapes its path gives it: `edge_rounds` (K1) on sw_1000's padded
-   tiles and on random DAG tiles, `edge_rounds_bucketed` (K2) on
-   ba_10000's degree buckets (also against K1 on the same problem; each
-   record carries the cluster of CTAs a task row got),
-   `simplex_project` (K3) on both scenarios' data and result rows, both
-   bit for bit (K1, K2) or to atol 1e-5 with every row summing to 1 or
-   all zero (K3); `flash_attention` (K4) on Qwen3-0.6B's prefill,
+   tiles, on random DAG tiles and on the seven solves of the sparse main
+   path's first iteration (operands recorded from `core.run`),
+   `edge_rounds_bucketed` (K2) on ba_10000's degree buckets (also
+   against K1 on the same problem; each K1 and K2 record carries the
+   cluster of CTAs a task row got), `simplex_project` (K3) on both
+   scenarios' data and result rows under a random mask and on the two
+   QPs of each main path's first iteration, both bit for bit with equal
+   rounds (K1, K2) or to atol 1e-5 with every row summing to 1 or all
+   zero (K3; its bound counts 5 bytes a coordinate and 12 more a
+   permitted one); `flash_attention` (K4) on Qwen3-0.6B's prefill,
    q [1, 16, L, 128] against k, v [1, 8, L, 128], causal, L in {17, 128,
    333, 512}, and on OLMoE's, k, v [1, 16, L, 128], L in {17, 333, 512},
    and `decode_attention` (K5) on their decode steps, q [8, 8, 2, 128]
@@ -35,9 +39,10 @@
    `active` replayed from a CUDA graph on new inputs and active sets.
    Prints the times of each, and for K4 and K5 that of PyTorch's
    scaled_dot_product_attention, for K7 that of torch.bmm, on the same
-   inputs as a yardstick (no PyTorch call computes K6's function); K4–K7 are timed by the profiler's device
-   time (for K4 and K5 CUDA events around the run are printed beside
-   it, and the kernel's ratio to SDPA), the others by CUDA events.
+   inputs as a yardstick (no PyTorch call computes K6's function); K1,
+   K3 and K4–K7 are timed by the profiler's device time (for K4 and K5
+   CUDA events around the run are printed beside it, and the kernel's
+   ratio to SDPA), K2 by CUDA events.
 3. Drives the sparse main path, Algorithm 1 for 20 iterations: sw_1000
    padded (K1 + K3) and ba_10000 bucketed (K2 + K3).  The launch counts
    must be 2 + 5·n and 2·n for the n iterations executed, every cost
@@ -95,6 +100,7 @@ Every earlier line is a JSON record, except the nvidia-smi line.
 """
 import contextlib
 import gc
+import inspect
 import itertools
 import json
 import math
@@ -214,6 +220,34 @@ def substochastic(torch, gen, mask, S, scale):
     return w * (scale / w.sum(-1, keepdim=True).clamp_min(1.0))
 
 
+def golden_costs(src) -> dict:
+    """The JAX reference's main-path trajectories, by scenario."""
+    with open(os.path.join(src, "repro_torch", "data",
+                           "reference_costs.json")) as f:
+        return json.load(f)
+
+
+def check_costs(label, hist, want) -> float:
+    """Holds one `core.run` history to its golden trajectory `want`: every
+    cost finite and non-increasing, the same accepted steps and
+    rejections, the costs to rtol 2e-4.  Returns the largest relative
+    difference."""
+    costs, ref_costs = hist["costs"], want["costs"]
+    require(all(map(math.isfinite, costs)), f"{label}: a cost is not "
+            "finite")
+    require(all(b <= a for a, b in zip(costs, costs[1:])),
+            f"{label}: an accepted cost rose")
+    require(len(costs) == len(ref_costs)
+            and hist["n_rejected"] == want["n_rejected"],
+            f"{label}: {len(costs)} costs / {hist['n_rejected']} "
+            f"rejections vs the reference's {len(ref_costs)} / "
+            f"{want['n_rejected']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(costs, ref_costs))
+    require(rel <= 2e-4, f"{label}: costs differ from the reference by "
+            f"rtol {rel}")
+    return rel
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -228,8 +262,9 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.edge_rounds import (cluster_plan, cluster_size,
                                                  edge_rounds_bucketed_cuda,
-                                                 edge_rounds_cuda)
-    from repro_torch.kernels.simplex_project import simplex_project_cuda
+                                                 edge_rounds_cuda, k1_plan)
+    from repro_torch.kernels.simplex_project import (rows_per_warp,
+                                                     simplex_project_cuda)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -275,19 +310,22 @@ def main() -> int:
             row.update({k: v for k, v in kv.items() if k != "main"})
 
     # ------------------------------------------------- K1 edge_rounds
-    def k1_case(label, w, b, nbr, mask, reduce, shift, main=False):
-        V, D = nbr.shape
-        nbr32, mask8 = nbr.to(torch.int32), mask.to(torch.uint8)
-        x, rounds = edge_rounds_cuda(w, b, nbr32, mask8, reduce, shift)
+    def k1_case(label, w, b, nbr32, mask8, reduce, shift, max_rounds=None,
+                main=False):
+        V, D = nbr32.shape
+        plan = k1_plan(w.shape[0], V, D)
+        x, rounds = edge_rounds_cuda(w, b, nbr32, mask8, reduce, shift,
+                                     max_rounds)
         torch.cuda.synchronize()
-        xr, kr = ref.edge_rounds_ref(w, b, nbr, mask, reduce, shift)
+        xr, kr = ref.edge_rounds_ref(w, b, nbr32.long(), mask8.bool(),
+                                     reduce, shift, max_rounds)
         require(torch.equal(x, xr), f"K1 {label}: kernel != plain")
         require(int(rounds.max()) == kr, f"K1 {label}: rounds "
                 f"{int(rounds.max())} != plain {kr}")
-        ms = time_ms(torch, lambda: edge_rounds_cuda(
-            w, b, nbr32, mask8, reduce, shift), 20)
+        ms = device_ms(torch, lambda: edge_rounds_cuda(
+            w, b, nbr32, mask8, reduce, shift, max_rounds), 20)
         plain = time_ms(torch, lambda: ref.edge_rounds_ref(
-            w, b, nbr, mask, reduce, shift), 3)
+            w, b, nbr32.long(), mask8.bool(), reduce, shift, max_rounds), 3)
         n_bytes = (w.numel() * w.element_size() + b.numel() * b.element_size()
                    + V * D * 5 + x.numel() * x.element_size())
         n_ops = 3.0 * float(rounds.sum()) * V * D
@@ -295,37 +333,50 @@ def main() -> int:
         emit({"phase": "kernel", "kernel": "edge_rounds", "case": label,
               "shape": list(w.shape), "dtype": str(w.dtype),
               "reduce": reduce, "shift": shift, "bitwise": True,
+              "cluster": plan.size, "tiles_in_smem": plan.tiles,
+              "slots_a_lane": plan.slots_a_lane(D),
+              "smem_bytes_per_cta": plan.smem_bytes(D),
               "rounds_max": int(rounds.max()), "ms": ms, "plain_ms": plain,
               "bound_ms": bms, "bound_by": by})
         headline("edge_rounds", max_abs_err=0.0, main=main, ms=ms,
                  plain_ms=plain, bound_ms=bms, bound_by=by)
 
+    # the operands of core.run's first iteration on both paths
+    path_ops = {name: record_path_operands(torch, core, ops, nets[name],
+                                           nbrs[name], bks[name], bucketed)
+                for name, bucketed in PATHS}
+    for i, (w, b, nbr32, mask8, reduce, shift, max_rounds) in enumerate(
+            path_ops["sw_1000"]["edge_rounds"]):
+        k1_case(f"sw_1000 path call {i} ({reduce})", w, b, nbr32, mask8,
+                reduce, shift, max_rounds)
+
     net, nb = nets["sw_1000"], nbrs["sw_1000"]
     S, V = net.S, net.V
     w_out = substochastic(torch, gen, nb.out_mask, S, 0.9)
     w_in = w_out[:, nb.in_nbr, nb.in_slot]
-    k1_case("sw_1000 traffic (in-edges)", w_in, net.r, nb.in_nbr,
-            nb.in_mask, "sum", 0.0, main=True)
+    i32, u8 = torch.int32, torch.uint8
+    k1_case("sw_1000 traffic (in-edges)", w_in, net.r, nb.in_nbr.to(i32),
+            nb.in_mask.to(u8), "sum", 0.0, main=True)
     k1_case("sw_1000 marginals (out-edges)", w_out,
-            torch.rand((S, V), generator=gen, device=dev), nb.out_nbr,
-            nb.out_mask, "sum", 0.0)
+            torch.rand((S, V), generator=gen, device=dev),
+            nb.out_nbr.to(i32), nb.out_mask.to(u8), "sum", 0.0)
     sup = (torch.rand((2 * S, V, nb.Dmax), generator=gen, device=dev)
            < 0.3) & nb.out_mask
     seeds = torch.rand((2 * S, V), generator=gen, device=dev) < 0.02
     for dt in (torch.float32, torch.bfloat16):
         k1_case(f"sw_1000 taint pair max {dt}", sup.to(dt), seeds.to(dt),
-                nb.out_nbr, nb.out_mask, "max", 0.0)
+                nb.out_nbr.to(i32), nb.out_mask.to(u8), "max", 0.0)
     dag = nb.out_mask & (nb.out_nbr > torch.arange(V, device=dev)[:, None])
     k1_case("sw_1000 longest path max shift=1", dag.float()[None].expand(
         S, V, nb.Dmax).contiguous(), torch.zeros((S, V), device=dev),
-        nb.out_nbr, nb.out_mask, "max", 1.0)
+        nb.out_nbr.to(i32), nb.out_mask.to(u8), "max", 1.0)
     gen_cpu = torch.Generator().manual_seed(1)
     adj = torch.triu(torch.rand((V, V), generator=gen_cpu) < 0.01, 1)
     dnb = core.build_neighbors(adj, device=dev)
     k1_case("random DAG V=1000", substochastic(torch, gen, dnb.out_mask, S,
                                                1.0),
-            torch.rand((S, V), generator=gen, device=dev), dnb.out_nbr,
-            dnb.out_mask, "sum", 0.0)
+            torch.rand((S, V), generator=gen, device=dev),
+            dnb.out_nbr.to(i32), dnb.out_mask.to(u8), "sum", 0.0)
 
     # ------------------------------------------ K2 edge_rounds_bucketed
     net, nb, bk = nets["ba_10000"], nbrs["ba_10000"], bks["ba_10000"]
@@ -380,14 +431,8 @@ def main() -> int:
             nb.out_mask, sup, "max")
 
     # ------------------------------------------------ K3 simplex_project
-    def k3_case(label, R, K, main=False):
-        phi = torch.rand((R, K), generator=gen, device=dev)
-        phi = phi / phi.sum(-1, keepdim=True)
-        delta = torch.rand((R, K), generator=gen, device=dev) * 3
-        M = torch.rand((R, K), generator=gen, device=dev) * 2 + 0.25
-        M[::5] = 1e-14
-        perm = torch.rand((R, K), generator=gen, device=dev) < 0.7
-        perm[::11] = False
+    def k3_case(label, phi, delta, M, perm, main=False):
+        R, K = phi.shape
         out = simplex_project_cuda(phi, delta, M, perm)
         torch.cuda.synchronize()
         want = ref.simplex_project_ref(phi, delta, M, perm)
@@ -399,16 +444,23 @@ def main() -> int:
                 f"K3 {label}: a permitted row does not sum to 1")
         require(bool((out[~live] == 0).all()),
                 f"K3 {label}: a blocked row is not all zero")
-        ms = time_ms(torch, lambda: simplex_project_cuda(phi, delta, M,
-                                                         perm), 20)
+        ms = device_ms(torch, lambda: simplex_project_cuda(phi, delta, M,
+                                                           perm), 20)
         plain = time_ms(torch, lambda: ref.simplex_project_ref(
             phi, delta, M, perm), 3)
-        halvings = bisection_halvings(torch, ref, phi, delta, M, perm)
-        n_bytes = R * K * (4 * 4 + 1)
-        n_ops = 3.0 * halvings * K + 12.0 * R * K
+        n_perm = perm.sum(-1)
+        halvings, work = bisection_halvings(torch, ref, phi, delta, M, perm,
+                                            weight=n_perm)
+        # the mask read and the output written once a coordinate; φ, δ and
+        # M read where permitted; 3 flops a permitted coordinate a halving
+        permitted = int(n_perm.sum())
+        n_bytes = R * K * 5 + 12 * permitted
+        n_ops = 3.0 * work + 12.0 * permitted
         bms, by = bound_ms(n_bytes, n_ops)
         emit({"phase": "kernel", "kernel": "simplex_project", "case": label,
               "shape": [R, K], "max_abs_err": err,
+              "rows_per_warp": rows_per_warp(K), "permitted": permitted,
+              "max_permitted_a_row": int(n_perm.max()),
               "mean_halvings": halvings / R, "ms": ms, "plain_ms": plain,
               "bound_ms": bms, "bound_by": by})
         headline("simplex_project", max_abs_err=err, main=main, ms=ms,
@@ -416,8 +468,19 @@ def main() -> int:
 
     for name in ("sw_1000", "ba_10000"):
         R, D = nets[name].S * nets[name].V, nbrs[name].Dmax
-        k3_case(f"{name} data rows", R, D + 1, main=(name == "ba_10000"))
-        k3_case(f"{name} result rows", R, D)
+        for label, K in (("data", D + 1), ("result", D)):
+            phi = torch.rand((R, K), generator=gen, device=dev)
+            phi = phi / phi.sum(-1, keepdim=True)
+            delta = torch.rand((R, K), generator=gen, device=dev) * 3
+            M = torch.rand((R, K), generator=gen, device=dev) * 2 + 0.25
+            M[::5] = 1e-14
+            perm = torch.rand((R, K), generator=gen, device=dev) < 0.7
+            perm[::11] = False
+            k3_case(f"{name} {label} rows (random 70 % mask)", phi, delta,
+                    M, perm, main=(name == "ba_10000" and label == "data"))
+        for i, args in enumerate(path_ops[name]["simplex_project"]):
+            k3_case(f"{name} path call {i} ({'data' if i == 0 else 'result'}"
+                    " rows)", *args[:4])
 
     # ------------------------------------- K4 flash / K5 decode attention
     attention_kernel_checks(torch, emit_kernel=headline)
@@ -427,9 +490,7 @@ def main() -> int:
     gmm_kernel_checks(torch, emit_kernel=headline)
 
     # -------------------------------------------------------- main path
-    with open(os.path.join(src, "repro_torch", "data",
-                           "reference_costs.json")) as f:
-        golden = json.load(f)
+    golden = golden_costs(src)
     path_launches = {}
     for name, bucketed in PATHS:
         net = nets[name]
@@ -450,19 +511,7 @@ def main() -> int:
         want.update({rounds_kernel: 2 + 5 * n_exec,
                      "simplex_project": 2 * n_exec})
         require(counts == want, f"{name}: launches {counts} != {want}")
-        require(all(map(math.isfinite, costs)), f"{name}: a cost is not "
-                "finite")
-        require(all(b <= a for a, b in zip(costs, costs[1:])),
-                f"{name}: an accepted cost rose")
-        ref_costs = golden[name]["costs"]
-        require(len(costs) == len(ref_costs)
-                and hist["n_rejected"] == golden[name]["n_rejected"],
-                f"{name}: {len(costs)} costs / {hist['n_rejected']} "
-                f"rejections vs the reference's {len(ref_costs)} / "
-                f"{golden[name]['n_rejected']}")
-        rel = max(abs(a - b) / abs(b) for a, b in zip(costs, ref_costs))
-        require(rel <= 2e-4, f"{name}: costs differ from the reference by "
-                f"rtol {rel}")
+        rel = check_costs(name, hist, golden[name])
         for k in ("edge_rounds", "edge_rounds_bucketed", "simplex_project"):
             path_launches[k] = path_launches.get(k, 0) + counts[k]
         emit({"phase": "main_path", "scenario": name, "bucketed": bucketed,
@@ -598,22 +647,61 @@ def path_launch_ms(torch, core, net, phi0, nbrs, bks, bucketed,
     return out
 
 
-def bisection_halvings(torch, ref, phi, delta, M, perm, n_iter=60):
+def bisection_halvings(torch, ref, phi, delta, M, perm, n_iter=60,
+                       weight=None):
     """Halvings the rows of this input need: each row counts until its
-    own bracket stops moving (the oracle's loop, row by row)."""
+    own bracket stops moving (the oracle's loop, row by row).  Returns
+    (halvings summed over rows, the same weighted by `weight` [R])."""
     q, w, _, lo, hi = ref.dual_setup(phi, delta, M, perm)
     live = torch.ones_like(lo, dtype=torch.bool)
+    wt = (torch.ones_like(lo, dtype=torch.float64) if weight is None
+          else weight.double().reshape(lo.shape))
     total = torch.zeros((), dtype=torch.float64, device=phi.device)
+    work = torch.zeros((), dtype=torch.float64, device=phi.device)
     for _ in range(n_iter):
         mid = 0.5 * (lo + hi)
         up = torch.clamp_min(q - mid * w, 0.0).sum(-1, keepdim=True) > 1.0
         lo2, hi2 = torch.where(up, mid, lo), torch.where(up, hi, mid)
         total += live.sum()
+        work += (live * wt).sum()
         live = live & ((lo2 != lo) | (hi2 != hi))
         lo, hi = lo2, hi2
         if not bool(live.any()):
             break
-    return float(total)
+    return float(total), float(work)
+
+
+def record_path_operands(torch, core, ops, net, nbrs, bks, bucketed):
+    """The operands of every K1, K2 and K3 call of one iteration of
+    `core.run` (its initial flow solves included), copied as the wrappers
+    receive them: {"edge_rounds" | "edge_rounds_bucketed" |
+    "simplex_project": [all arguments, defaults filled in]}."""
+    rec = {"edge_rounds": [], "edge_rounds_bucketed": [],
+           "simplex_project": []}
+    real = {k: getattr(ops, f"{k}_cuda") for k in rec}
+
+    def recorder(kind):
+        sig = inspect.signature(real[kind])
+
+        def call(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            rec[kind].append(tuple(a.clone() if torch.is_tensor(a) else a
+                                   for a in bound.arguments.values()))
+            return real[kind](*args, **kwargs)
+        return call
+
+    for k in rec:
+        setattr(ops, f"{k}_cuda", recorder(k))
+    try:
+        core.run(net, core.spt_phi_sparse(net, nbrs), n_iters=1,
+                 bucketed=bucketed, nbrs=nbrs,
+                 buckets=bks if bucketed else None)
+        torch.cuda.synchronize()
+    finally:
+        for k, fn in real.items():
+            setattr(ops, f"{k}_cuda", fn)
+    return rec
 
 
 def ptxas_summary(report: str) -> dict:

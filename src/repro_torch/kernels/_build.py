@@ -78,7 +78,7 @@ _SIGNATURES = {
     "edge_rounds": {
         "edge_rounds_launch": [_INT, _INT, _INT, _PTR, _PTR, _PTR, _PTR,
                                _PTR, _PTR, _INT, _INT, _INT, _FLOAT, _INT,
-                               _PTR, _PTR],
+                               _INT, _INT, _INT, _PTR],
         "edge_rounds_bucketed_launch": [_INT, _INT, _INT] + [_PTR] * 10
                                        + [_INT, _PTR, _PTR, _INT, _INT, _INT,
                                           _PTR, _PTR, _INT, _INT, _INT,

@@ -5,11 +5,13 @@
 its `edge_rounds_bucketed`.  Both run the whole early-exit loop in one
 launch and agree bit for bit with their plain versions in
 `kernels/ref.py` (`edge_rounds_ref`, `edge_rounds_bucketed_ref`), which
-take the tensors that lie on the CPU.  K1 runs one CTA per task row;
-K2 one thread-block cluster per task row, on the rank plan of
-`cluster_plan` (the bucket rows cut into ranges balanced by lanes, each
-lane's neighbour packed as its owner's rank and local row).  Each
-wrapper counts its launches in `.launches`.
+take the tensors that lie on the CPU.  Both run one thread-block
+cluster of CTAs per task row over distributed shared memory.  K1 splits
+the padded tile's nodes evenly (`k1_plan`: rank r owns nodes
+[⌈rV/c⌉, ⌈(r+1)V/c⌉), found on the device by arithmetic); K2 cuts the
+bucket rows by lanes on the host (`cluster_plan`: each lane's neighbour
+packed as its owner's rank and local row).  Each wrapper counts its
+launches in `.launches`.
 """
 from __future__ import annotations
 
@@ -20,8 +22,9 @@ import torch
 
 from . import _build
 
-__all__ = ["ClusterPlan", "EdgeBuckets", "cluster_plan", "cluster_size",
-           "edge_rounds_cuda", "edge_rounds_bucketed_cuda", "max_nodes"]
+__all__ = ["ClusterPlan", "EdgeBuckets", "K1Plan", "cluster_plan",
+           "cluster_size", "edge_rounds_cuda", "edge_rounds_bucketed_cuda",
+           "k1_plan", "max_nodes"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_BYTES = 232448            # dynamic shared memory a block can use
@@ -29,16 +32,26 @@ SMS = 132                       # streaming multiprocessors of an H100 SXM
 MAX_CLUSTER = 16                # CTAs a cluster may have (above 8: non-portable)
 MAX_BUCKETS = 32                # csrc kMaxSegs
 MIN_CLUSTER_LANES = 1024        # lanes below which a row gets no more CTAs
+K1_CTAS_PER_SM = 2              # K1 clusters fill up to this many CTAs an SM
+K1_CLUSTER = 2                  # and give a task row at most this many CTAs
+K1_SLOTS = 8                    # slots a lane folds on K1 tiles narrower than
+K1_SLOTS_SHARED = 4             # 32, alone on an SM / two CTAs to an SM
 
 
-def max_nodes(bucketed: bool = False) -> int:
-    """Largest V whose float32 state fits on chip: K1 keeps x and the
-    next round (8 bytes a node) in one CTA; K2 keeps x, the next round
-    and the inject (12 bytes a node) spread over a cluster of up to 16
-    CTAs, beside its lanes' tiles (9 bytes a lane), which `cluster_plan`
-    checks."""
-    return _SMEM_BYTES // 8 if not bucketed else \
-        MAX_CLUSTER * _SMEM_BYTES // 12
+def max_nodes() -> int:
+    """Largest V whose float32 state fits on chip, about: K1 and K2 keep
+    x, the next round and the inject (12 bytes a node) spread over a
+    cluster of up to 16 CTAs, beside their lanes' tiles (9 bytes a lane)
+    where those fit, which `k1_plan` and `cluster_plan` check exactly."""
+    return MAX_CLUSTER * _SMEM_BYTES // 12
+
+
+def k1_smem_bytes(rows_cap: int, D: int, tiles: bool) -> int:
+    """K1's shared memory a CTA (csrc k1_smem_bytes): x, next x and
+    inject, two rounds of flags, and with `tiles` the lanes' weights and
+    packed neighbours (4 bytes each) and a mask byte a lane."""
+    lanes = rows_cap * D if tiles else 0
+    return 4 * (3 * rows_cap + 2 * lanes + 2 * MAX_CLUSTER) + lanes
 
 
 def k2_smem_bytes(rows_cap: int, lanes_cap: int) -> int:
@@ -47,6 +60,55 @@ def k2_smem_bytes(rows_cap: int, lanes_cap: int) -> int:
     rounds of flags, the bucket segments, and a mask byte a lane."""
     return 4 * (3 * rows_cap + 2 * lanes_cap + 2 * MAX_CLUSTER) \
         + 16 * MAX_BUCKETS + 16 + lanes_cap
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """K1's split of a padded [V, D] tile over a cluster of `size` CTAs:
+    rank r owns nodes [⌈rV/size⌉, ⌈(r+1)V/size⌉) (at most `rows_cap`, a
+    multiple of 4) and their lanes; with `tiles` the lanes live in shared
+    memory, else every round reads them from L2.  A tile narrower than 32
+    is folded `slots` slots a lane: K1_SLOTS where the grid leaves each
+    CTA an SM of its own, K1_SLOTS_SHARED (fewer registers) where two
+    share one."""
+    size: int
+    rows_cap: int
+    tiles: bool
+    slots: int
+
+    def smem_bytes(self, D: int) -> int:
+        return k1_smem_bytes(self.rows_cap, D, self.tiles)
+
+    def slots_a_lane(self, D: int) -> int:
+        return _slots_per_lane(D, self.slots)
+
+
+def k1_plan(S: int, V: int, D: int, sms: int = SMS) -> K1Plan:
+    """K1's cluster from the shapes: `cluster_size` up to K1_CLUSTER CTAs
+    a row and K1_CTAS_PER_SM CTAs an SM (2 at sw_1000's S = 64 and at its
+    stacked S = 128), doubled up to MAX_CLUSTER while a rank's state and
+    tiles do not fit its shared memory.  Where the tiles fit no cluster,
+    K2's `cluster_size`, doubled while the state does not fit, with the
+    tiles left in L2.  A V whose state fits no cluster is refused."""
+    def rows_cap(c):
+        return _round4(-(-V // c))
+
+    for tiles, c0 in ((True, cluster_size(S, V * D, sms * K1_CTAS_PER_SM,
+                                          K1_CLUSTER)),
+                      (False, cluster_size(S, V * D, sms))):
+        c = c0
+        while k1_smem_bytes(rows_cap(c), D, tiles) > _SMEM_BYTES \
+                and c < MAX_CLUSTER:
+            c *= 2
+        if k1_smem_bytes(rows_cap(c), D, tiles) <= _SMEM_BYTES:
+            slots = K1_SLOTS if S * c <= sms else K1_SLOTS_SHARED
+            return K1Plan(size=c, rows_cap=rows_cap(c), tiles=tiles,
+                          slots=slots)
+    raise ValueError(
+        f"edge_rounds: V={V} needs {k1_smem_bytes(rows_cap(c), D, False)} "
+        f"bytes of shared memory a CTA for its state even split over a "
+        f"cluster of {MAX_CLUSTER} CTAs (at most {_SMEM_BYTES}; about "
+        f"{max_nodes()} nodes); there is no second path")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,14 +179,15 @@ class EdgeBuckets:
                    widths=widths, lanes=int(lanes[-1]))
 
 
-def cluster_size(S: int, lanes: int, sms: int = SMS) -> int:
+def cluster_size(S: int, lanes: int, sms: int = SMS,
+                 most: int = 8) -> int:
     """CTAs a task row gets, from the shapes alone: the largest power of
-    two up to 8 that keeps S rows' clusters within the card's SMs and
-    leaves each CTA at least MIN_CLUSTER_LANES lanes (8 at S = 16, 4 at
-    S = 32 on ba_10000's 50,030 lanes).  `cluster_plan` doubles it
+    two up to `most` that keeps S rows' clusters within `sms` CTAs and
+    leaves each CTA at least MIN_CLUSTER_LANES lanes (K2: 8 at S = 16,
+    4 at S = 32 on ba_10000's 50,030 lanes).  `cluster_plan` doubles it
     while a rank's share does not fit its shared memory."""
     c = 1
-    while (c < 8 and S * 2 * c <= sms
+    while (c < most and S * 2 * c <= sms
            and lanes // (2 * c) >= MIN_CLUSTER_LANES):
         c *= 2
     return c
@@ -184,7 +247,7 @@ def cluster_plan(csr: EdgeBuckets, size: int) -> ClusterPlan:
                 f"edge_rounds_bucketed: V={V} with {csr.lanes} lanes needs "
                 f"{k2_smem_bytes(rows_cap, lanes_cap)} bytes of shared "
                 f"memory a CTA even split over a cluster of {c} CTAs (at "
-                f"most {_SMEM_BYTES}; about {max_nodes(True)} nodes before "
+                f"most {_SMEM_BYTES}; about {max_nodes()} nodes before "
                 "any lane); there is no second path")
         c *= 2
     dev = csr.nodes.device
@@ -197,9 +260,11 @@ def cluster_plan(csr: EdgeBuckets, size: int) -> ClusterPlan:
     return plan
 
 
-def _slots_per_lane(width: int) -> int:
+def _slots_per_lane(width: int, narrow: int = 1) -> int:
+    """Slots a lane folds: P / 32 for a padded width P of 32 or more, else
+    min(P, narrow) (K1 takes K1_SLOTS, K2 one)."""
     P = 1 if width <= 1 else 1 << (width - 1).bit_length()
-    return max(P // 32, 1)
+    return P // 32 if P >= 32 else min(P, narrow)
 
 
 def _operands(w, b, widest: int, what: str):
@@ -227,13 +292,10 @@ def edge_rounds_cuda(w_sp, inject, nbr, mask, reduce: str = "sum",
                      shift: float = 0.0, max_rounds: int | None = None):
     """w_sp [S, V, Dmax], inject [S, V], nbr [V, Dmax] int32 and mask
     [V, Dmax] uint8 on the card -> (x [S, V] in the promoted dtype,
-    int32 [S] rounds each task row ran)."""
+    int32 [S] rounds each task row ran).  One cluster of
+    `k1_plan(S, V, Dmax).size` CTAs per task row."""
     V, D = nbr.shape
     w, b, dt = _operands(w_sp, inject, D, "edge_rounds")
-    if V > max_nodes():
-        raise ValueError(
-            f"edge_rounds: V={V} exceeds the {max_nodes()} nodes whose state "
-            "fits one CTA's shared memory")
     if nbr.dtype != torch.int32 or mask.dtype != torch.uint8:
         raise TypeError("edge_rounds takes int32 nbr and uint8 mask tiles")
     if nbr.device != w.device or mask.device != w.device:
@@ -243,14 +305,14 @@ def edge_rounds_cuda(w_sp, inject, nbr, mask, reduce: str = "sum",
     S = w.shape[0]
     if S == 0:
         return out, rounds
+    plan = k1_plan(S, V, D)
     max_rounds = V if max_rounds is None else max_rounds
-    b32 = torch.empty((S, V), dtype=torch.float32, device=w.device)
     err = _build.load("edge_rounds").edge_rounds_launch(
-        int(reduce == "max"), _slots_per_lane(D), dt, w.data_ptr(),
-        b.data_ptr(), nbr.contiguous().data_ptr(),
+        int(reduce == "max"), plan.slots_a_lane(D), dt,
+        w.data_ptr(), b.data_ptr(), nbr.contiguous().data_ptr(),
         mask.contiguous().data_ptr(), out.data_ptr(), rounds.data_ptr(), S,
-        V, D, float(shift), int(max_rounds), b32.data_ptr(),
-        torch.cuda.current_stream(w.device).cuda_stream)
+        V, D, float(shift), int(max_rounds), plan.size, plan.rows_cap,
+        int(plan.tiles), torch.cuda.current_stream(w.device).cuda_stream)
     edge_rounds_cuda.launches += 1
     _build.check(err, "edge_rounds kernel")
     return out, rounds

@@ -3,8 +3,11 @@
 `simplex_project_cuda` replaces the JAX package's Pallas kernel
 `kernels/simplex_project.py:simplex_project`, following its oracle
 `core/sgp.py:project_rows` (the plain version here is
-`kernels/ref.py:simplex_project_ref`).  One warp solves one row.
-Launches are counted in `.launches`.
+`kernels/ref.py:simplex_project_ref`).  Each warp takes a batch of
+`rows_per_warp(K)` rows, compacts every row's permitted coordinates and
+solves the rows in sub-warp groups sized to their permitted counts (a
+whole warp for rows with more than 32).  Launches are counted in
+`.launches`.
 """
 from __future__ import annotations
 
@@ -12,9 +15,17 @@ import torch
 
 from . import _build
 
-__all__ = ["simplex_project_cuda"]
+__all__ = ["rows_per_warp", "simplex_project_cuda"]
 
 MAX_WIDTH = 16 * 32
+STAGE_BYTES = 2304       # mask bytes a warp's batch of rows stages, about
+MAX_ROWS = 16            # rows a batch may hold (csrc kMaxRows: 32)
+
+
+def rows_per_warp(K: int) -> int:
+    """Rows of one warp's batch: about STAGE_BYTES of mask, 1 to MAX_ROWS
+    rows (16 at sw_1000's K = 15, 8 at ba_10000's K = 278)."""
+    return max(1, min(MAX_ROWS, STAGE_BYTES // max(K, 1)))
 
 
 def simplex_project_cuda(phi, delta, M, permitted, n_iter: int = 60):
@@ -37,13 +48,11 @@ def simplex_project_cuda(phi, delta, M, permitted, n_iter: int = 60):
     out = torch.empty((R, K), dtype=torch.float32, device=phi.device)
     if R == 0 or K == 0:
         return out
-    per_lane = -(-K // 32)
-    kpl = 1 << (per_lane - 1).bit_length()
     phi, delta, M = phi.contiguous(), delta.contiguous(), M.contiguous()
     perm = permitted.contiguous().view(torch.uint8)
     err = _build.load("simplex_project").simplex_project_launch(
-        kpl, phi.data_ptr(), delta.data_ptr(), M.data_ptr(), perm.data_ptr(),
-        out.data_ptr(), R, K, int(n_iter),
+        rows_per_warp(K), phi.data_ptr(), delta.data_ptr(),
+        M.data_ptr(), perm.data_ptr(), out.data_ptr(), R, K, int(n_iter),
         torch.cuda.current_stream(phi.device).cuda_stream)
     simplex_project_cuda.launches += 1
     _build.check(err, "simplex_project kernel")

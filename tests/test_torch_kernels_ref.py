@@ -27,6 +27,7 @@ from repro.kernels import ref as jref
 from repro_torch import core as tcore
 from repro_torch.kernels import edge_rounds as er_mod
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import simplex_project as sp_mod
 
 torch.set_num_threads(1)
 
@@ -426,8 +427,7 @@ def test_cluster_size_from_shapes(monkeypatch):
     assert er_mod.cluster_size(64, 50030) == 2
     assert er_mod.cluster_size(200, 50030) == 1
     assert er_mod.cluster_size(1, 3000) == 2
-    assert er_mod.max_nodes() == 29056
-    assert er_mod.max_nodes(bucketed=True) == 16 * 232448 // 12
+    assert er_mod.max_nodes() == 16 * 232448 // 12
     eb = tcore.build_buckets(_ba_adj(), device="cpu").out
     monkeypatch.setattr(er_mod, "_SMEM_BYTES", er_mod.k2_smem_bytes(
         -(-eb.nodes.numel() // 8) + 4, -(-eb.lanes // 4) + 4))
@@ -436,6 +436,146 @@ def test_cluster_size_from_shapes(monkeypatch):
     monkeypatch.setattr(er_mod, "_SMEM_BYTES", er_mod.k2_smem_bytes(0, 0))
     with pytest.raises(ValueError, match="no second path"):
         er_mod.cluster_plan(dataclasses.replace(eb, plans={}), 1)
+
+
+# --------------------------------------------- K1's cluster plan (card)
+def _k1_ranks(V, c):
+    """K1's arithmetic plan (`csrc/edge_rounds.cu` k1_row, k1_pack): rank
+    r owns nodes [start[r], start[r+1]), start[r] = ⌈rV/c⌉, and node j
+    lives on rank ⌊jc/V⌋ at row j - start[rank]."""
+    start = torch.tensor([-(-r * V // c) for r in range(c + 1)])
+
+    def pack(j):
+        owner = j * c // V
+        return owner, j - start[owner]
+    return start, pack
+
+
+def _k1_rounds(w, b, nbr, mask, c, reduce, shift, max_rounds):
+    """A transcription of K1's partitioned round (edge_rounds_kernel):
+    rank r holds its nodes' state in row order; each round it folds its
+    nodes' [D] lane rows from the previous round's state of the rank
+    that owns each neighbour and writes its own rows' next state.
+    Returns (x [S, V], rounds)."""
+    combine = ref._combine(reduce)
+    V = nbr.shape[0]
+    start, pack = _k1_ranks(V, c)
+    owner, local = pack(nbr.long())
+    size = (start[1:] - start[:-1]).tolist()
+    wf = torch.where(mask.bool(), w.float(), 0.0)
+    bf = b.float()
+    x0 = torch.zeros((w.shape[0], c, max(max(size), 1)))
+    for r in range(c):
+        x0[:, r, :size[r]] = bf[:, start[r]:start[r + 1]]
+
+    def step(x):
+        y = torch.zeros_like(x)
+        for r in range(c):
+            rows = slice(int(start[r]), int(start[r + 1]))
+            xj = x[:, owner[rows], local[rows]]
+            red = ref.fold_reduce(wf[:, rows] * (xj + shift), reduce)
+            y[:, r, :size[r]] = combine(bf[:, rows], red)
+        return y
+
+    x, k = ref.fixed_point(step, x0, max_rounds)
+    return torch.cat([x[:, r, :size[r]] for r in range(c)], dim=1), k
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16])
+def test_k1_plan_covers_every_lane_and_node_once(c):
+    """K1's ranks split the nodes of a padded tile into contiguous ranges
+    of at most `k1_plan`'s rows_cap rows (their lanes follow them), and
+    every neighbour's packed (rank, row) names the node it gathers."""
+    for V in (150, 1000, 1001, 13):
+        start, pack = _k1_ranks(V, c)
+        size = start[1:] - start[:-1]
+        assert start[0] == 0 and start[-1] == V and bool((size >= 0).all())
+        assert int(size.max()) - int(size.min()) <= 1
+        rows_cap = -(-(-(-V // c)) // 4) * 4
+        assert int(size.max()) <= rows_cap
+        j = torch.arange(V)
+        owner, local = pack(j)
+        assert bool(((0 <= local) & (local < size[owner])).all())
+        assert torch.equal(start[owner] + local, j)
+        assert bool((owner < 16).all()) and int(local.max()) < 1 << 27
+        lanes = torch.cat([torch.arange(int(start[r]) * 14,
+                                        int(start[r + 1]) * 14)
+                           for r in range(c)])
+        assert torch.equal(lanes, torch.arange(V * 14))
+
+
+@pytest.mark.parametrize("reduce", ["sum", "max"])
+def test_k1_lane_map_folds_in_fold_reduce_order(reduce):
+    """K1's lane map (edge_rounds.cu fold_nodes): a node's padded width P
+    on g = P / C lanes, lane l holding slots l, l+g, ..., l+(C-1)g; the
+    lane-local halvings, then shuffles down by g/2 .. 1 inside the group,
+    give fold_reduce bit for bit, for every C the wrappers can pick (K2
+    folds narrow tiles one slot a lane, K1 K1_SLOTS or K1_SLOTS_SHARED)."""
+    rng = np.random.default_rng(7)
+    for D in (1, 2, 3, 7, 14, 16, 29, 45, 277):
+        P = 1 if D <= 1 else 1 << (D - 1).bit_length()
+        msg = torch.from_numpy(rng.random((64, D)).astype(np.float32))
+        want = ref.fold_reduce(msg, reduce)
+        op = torch.add if reduce == "sum" else torch.maximum
+        padded = torch.nn.functional.pad(msg, (0, P - D)).abs()
+        for slots in (1, er_mod.K1_SLOTS_SHARED, er_mod.K1_SLOTS):
+            C = er_mod._slots_per_lane(D, slots)
+            g = P // C
+            a = padded.reshape(64, C, g)          # a[:, c, l]: slot l + g·c
+            h = C // 2
+            while h:
+                a = op(a[:, :h], a[:, h:2 * h])
+                h //= 2
+            v = a[:, 0]                           # [64, g], lane l's residue
+            off = g // 2
+            while off:                            # __shfl_down_sync, width g
+                lanes = torch.arange(g)
+                src = torch.where(lanes + off < g, lanes + off, lanes)
+                v = op(v, v[:, src])
+                off //= 2
+            assert torch.equal(v[:, 0], want), (D, slots)
+
+
+@pytest.mark.parametrize("reduce,shift", BUCKET_CASES)
+def test_k1_transcription_bitwise(reduce, shift):
+    """The transcription of K1's partitioned round on c in {2, 8} equals
+    the plain padded version bit for bit (values and rounds) on a small
+    world graph like sw_1000, on its in-edge and out-edge tiles."""
+    nb = tcore.build_neighbors(_sw_adj(), device="cpu")
+    w, b = _weights(nb, 3, 23)
+    if reduce == "max":
+        w, b = (w > 0.2).astype(np.float32), (b > 0.9).astype(np.float32)
+    tw, tb = torch.from_numpy(w), torch.from_numpy(b)
+    for nbr, mask, wt in ((nb.out_nbr, nb.out_mask, tw),
+                          (nb.in_nbr, nb.in_mask,
+                           tw[:, nb.in_nbr, nb.in_slot])):
+        want, kw = ref.edge_rounds_ref(wt, tb, nbr, mask, reduce, shift,
+                                       nb.V)
+        for c in (2, 8):
+            got, k = _k1_rounds(wt, tb, nbr, mask, c, reduce, shift, nb.V)
+            assert torch.equal(got, want) and k == kw
+
+
+def test_k1_plan_from_shapes():
+    """K1's cluster from the shapes: sw_1000's S = 64 rows and its
+    stacked taint pair's 128 get 2 CTAs each, with their tiles in shared
+    memory (8 slots a lane where a CTA has an SM to itself, 4 where two
+    share one); ba_10000's padded tiles fit no cluster, so they stay in
+    L2 with the state over 8 CTAs; every V of the one-CTA kernel's old
+    limit (29,056) is taken, and a state that fits no cluster is
+    refused."""
+    P = er_mod.K1Plan
+    assert er_mod.k1_plan(64, 1000, 14) == P(2, 500, True, 8)
+    assert er_mod.k1_plan(128, 1000, 14) == P(2, 500, True, 4)
+    assert er_mod.k1_plan(200, 1000, 14) == P(1, 1000, True, 4)
+    assert er_mod.k1_plan(16, 10000, 277) == P(8, 1252, False, 8)
+    for V, D in ((29056, 1024), (29056, 1), (20000, 14)):
+        plan = er_mod.k1_plan(1, V, D)
+        assert plan.smem_bytes(D) <= er_mod._SMEM_BYTES
+        assert plan.rows_cap * plan.size >= V
+    assert er_mod.k1_plan(1, 20000, 14).tiles
+    with pytest.raises(ValueError, match="no second path"):
+        er_mod.k1_plan(1, er_mod.max_nodes() + 64, 1)
 
 
 def test_dispatch_shape_checks_and_impl():
@@ -566,6 +706,178 @@ def test_pallas_interpret_simplex_project():
                               jnp.asarray(M), jnp.asarray(perm),
                               impl="pallas_interpret")
     np.testing.assert_allclose(got.numpy(), np.asarray(k3), atol=1e-4)
+
+
+# ------------------------------------------------ K3's row map (card)
+def _k3_coords(phi, delta, M):
+    """The kernel's dual setup of permitted coordinates (csrc coord):
+    (q, w, d, lo, hi), each as the oracle's dual_setup rounds it."""
+    twoM = 2.0 * torch.clamp_min(M, 1e-12)
+    return (phi - delta / twoM, 1.0 / twoM, delta,
+            -delta - twoM * (1.0 - phi), -delta + twoM * phi)
+
+
+def _k3_solve(phi, delta, M, cols, n, fb, G, kpl, n_iter=60):
+    """K3's solve_row<G, kpl> for a batch of rows: lane t of the group
+    holds compacted coordinates t, t+G, ... (cols [rows, G·kpl], -1 past
+    n); a lane sums its registers in order, then the group's xor
+    butterfly.  Returns (values [rows, G·kpl], one-hot column or -1)."""
+    live = cols >= 0
+    ridx = torch.arange(cols.shape[0])[:, None]
+    c = torch.where(live, cols, 0)
+    q, w, d, lo, hi = _k3_coords(phi[ridx, c], delta[ridx, c], M[ridx, c])
+    q = torch.where(live, q, -ref.BIG)
+    w = torch.where(live, w, 0.0)
+    d = torch.where(live, d, float("inf"))
+    lo = torch.where(live, lo, ref.BIG).amin(-1, keepdim=True)
+    hi = torch.where(live, hi, -ref.BIG).amax(-1, keepdim=True)
+    lanes = torch.arange(G)
+
+    def group_sum(v):                       # [rows, G·kpl] -> [rows, 1]
+        v = v.reshape(-1, kpl, G)
+        acc = torch.zeros_like(v[:, 0])
+        for r in range(kpl):
+            acc = acc + v[:, r]
+        off = G // 2
+        while off:
+            acc = acc + acc[:, lanes ^ off]
+            off //= 2
+        return acc[:, :1]
+
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        up = group_sum(torch.clamp_min(q - mid * w, 0.0)) > 1.0
+        lo2, hi2 = torch.where(up, mid, lo), torch.where(up, hi, mid)
+        if torch.equal(lo2, lo) and torch.equal(hi2, hi):
+            break
+        lo, hi = lo2, hi2
+    v = torch.clamp_min(q - (0.5 * (lo + hi)) * w, 0.0)
+    v = torch.where(v > ref.SNAP_TOL, v, 0.0)
+    s = group_sum(v)
+    vals = torch.where(live, v / torch.clamp_min(s, 1e-30), 0.0)
+    # first argmin of (d, column) over the compacted lanes, then the
+    # first blocked column where no permitted d is below BIG
+    key = torch.where(live, cols, 1 << 30)
+    dm = d.amin(-1, keepdim=True)
+    jm = torch.where(d == dm, key, 1 << 30).amin(-1)
+    dm = dm[:, 0]
+    use_fb = (fb < phi.shape[1]) & ((dm > ref.BIG) | ((dm == ref.BIG)
+                                                      & (fb < jm)))
+    jm = torch.where(use_fb, fb, jm)
+    return vals, torch.where(s[:, 0] > 0.0, -1, jm)
+
+
+def _k3_transcription(phi, delta, M, perm, B):
+    """A transcription of K3 (`csrc/simplex_project.cu`): warps take
+    batches of B rows; each row's permitted columns are compacted in
+    column order; a row with n > 32 of them is solved by the whole warp
+    (kpl = ⌈K/32⌉ registers a lane), the others class by class on groups
+    of G = 4, 8, 16 or 32 lanes, 32/G rows a pass.  Returns (out,
+    schedule): schedule lists (warp, G, pass, group, row) of every row
+    solved."""
+    R, K = phi.shape
+    kpl = -(-K // 32)
+    n_of = perm.sum(-1)
+    sched = []
+    for wp, r0 in enumerate(range(0, R, B)):
+        rows = list(range(r0, min(r0 + B, R)))
+        sched += [(wp, 32, 0, 0, i) for i in rows if n_of[i] > 32]
+        for G in (4, 8, 16, 32):
+            cls = [i for i in rows if 0 < n_of[i] <= 32
+                   and max(4, 1 << (int(n_of[i]) - 1).bit_length()) == G]
+            sched += [(wp, G, k // (32 // G), k % (32 // G), i)
+                      for k, i in enumerate(cls)]
+    out = torch.zeros(R, K)
+    for G, kp in ((4, 1), (8, 1), (16, 1), (32, 1), (32, kpl)):
+        rows = [i for _, g, _, _, i in sched if g == G
+                and (kp > 1) == (n_of[i] > 32)]
+        if not rows:
+            continue
+        rows = torch.tensor(rows)
+        cols = torch.full((len(rows), G * kp), -1)
+        fb = torch.full((len(rows),), K)
+        for a, i in enumerate(rows.tolist()):
+            pc = perm[i].nonzero()[:, 0]
+            # compacted coordinate p sits at lane p % G, register p // G
+            cols[a, (pc.numel() and torch.arange(pc.numel()))] = pc
+            bc = (~perm[i]).nonzero()[:, 0]
+            fb[a] = int(bc[0]) if bc.numel() else K
+        vals, jm = _k3_solve(phi[rows], delta[rows], M[rows], cols,
+                             n_of[rows], fb, G, kp)
+        for a, i in enumerate(rows.tolist()):
+            if jm[a] >= 0:
+                out[i, jm[a]] = 1.0
+            else:
+                live = cols[a] >= 0
+                out[i, cols[a][live]] = vals[a][live]
+    return out, sched
+
+
+def _ba_rows(K, seed, dest_every=0):
+    """[R, K] QP rows with ba_10000's pattern: out-degree 1-7 on most
+    rows, the permitted slots a subset of the row's first `deg` columns
+    (plus the local last column of data rows, K = 278), three hubs with
+    40-250 permitted, fully blocked rows, and rows of vanishing scaling
+    whose fallback one-hot takes the first of tied δ minima (or, with
+    every permitted δ above BIG, the first blocked column)."""
+    rng = np.random.default_rng(seed)
+    R = 240
+    deg = np.minimum(rng.geometric(0.3, R), 7)
+    deg[[5, 77, 151]] = [45, 120, K - 1]
+    perm = np.zeros((R, K), bool)
+    for i in range(R):
+        perm[i, :deg[i]] = rng.random(deg[i]) < (0.95 if deg[i] > 7
+                                                  else 0.6)
+    if K == 278:
+        perm[:, -1] = True
+    perm[10::37] = False                      # fully blocked rows
+    if dest_every:
+        perm[::dest_every] = False
+    phi = rng.random((R, K)).astype(np.float32) * perm
+    phi /= np.maximum(phi.sum(-1, keepdims=True), 1e-30)
+    delta = (rng.random((R, K)) * 3).astype(np.float32)
+    M = (rng.random((R, K)) * 2 + 0.25).astype(np.float32)
+    tie = np.arange(3, R, 9)                  # one-hot to the first tie
+    M[tie] = 1e-14
+    for i in tie:
+        pc = np.flatnonzero(perm[i])
+        delta[i, pc] = 2.0
+        delta[i, pc[-2:]] = 0.5
+    M[4], delta[4] = 1e-14, 3e12              # every permitted δ > BIG
+    perm[4, :3] = [True, False, True]
+    phi[4] = 0.0
+    return phi, delta, M, perm
+
+
+@pytest.mark.parametrize("K,dest", [(278, 0), (277, 6)])
+def test_k3_transcription_matches_oracle(K, dest):
+    """The transcription of K3's compaction and sub-warp lane map solves
+    every row with a permitted coordinate exactly once, in a group sized
+    to its count (the whole warp above 32), and matches the plain version
+    to 1e-6 on ba_10000-pattern data (K = 278) and result rows (K = 277,
+    every sixth row a task's destination, fully blocked)."""
+    phi, delta, M, perm = (torch.from_numpy(a) for a in _ba_rows(K, K,
+                                                                 dest))
+    want = ref.simplex_project_ref(phi, delta, M, perm)
+    n_of = perm.sum(-1)
+    assert int((n_of > 32).sum()) == 3 and bool((n_of == 0).any())
+    # the fallback rows: ties to their first minimum, one past BIG
+    assert want[4, 1] == 1.0
+    tie = torch.arange(3, 240, 9)
+    tie = tie[n_of[tie] > 1]
+    assert bool((want[tie].argmax(-1) == torch.tensor(
+        [int(perm[i].nonzero()[-2]) for i in tie])).all())
+    B = sp_mod.rows_per_warp(K)
+    assert B == 8
+    got, sched = _k3_transcription(phi, delta, M, perm, B)
+    solved = sorted(i for *_, i in sched)
+    assert solved == torch.nonzero(n_of > 0)[:, 0].tolist()
+    for wp, G, p, g, i in sched:
+        assert i // B == wp and g < 32 // G
+        n = int(n_of[i])
+        assert G == (32 if n > 32 else max(4, 1 << (n - 1).bit_length()))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+    assert (got.numpy()[~perm.numpy() & (got.numpy() != 1.0)] == 0).all()
 
 
 # ------------------------------------------------------------ isolation

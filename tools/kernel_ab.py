@@ -4,10 +4,11 @@
     python3 tools/kernel_ab.py [--variant SOURCE=path.cu ...]
                                [--split-max 32,64,128,256]
                                [--only flash_attention,decode_attention,
-                                       moe_gmm,edge_rounds_bucketed]
+                                       moe_gmm,edge_rounds,
+                                       edge_rounds_bucketed,simplex_project]
 
 Builds the port's `flash_attention` (K4), `decode_attention` (K5),
-`moe_gmm` (K7) and `edge_rounds` (K1, K2) from
+`moe_gmm` (K7), `edge_rounds` (K1, K2) and `simplex_project` (K3) from
 `src/repro_torch/kernels/csrc`, and each variant source (a `.cu` with
 the same C interface, named by the source it stands in for) with the
 same nvcc flags.  For every case of the kernel's path it times the
@@ -25,13 +26,23 @@ variants reversed, source:
   [64, C, 1024] @ [64, 1024, 2048] at C in {4, 52, 80} in bf16, at C in
   {4, 80} in float32, and the decode's C = 4 with 40 of 64 experts
   active, beside torch.bmm;
-* K2: ba_10000's cold traffic, marginals and taint-pair solves of
-  `chip_smoke.py`, and the seven solves of the sparse main path's first
-  iteration (recorded from `core.run`).
+* K1: sw_1000's cold traffic, taint-pair and longest-path solves of
+  `chip_smoke.py` and the seven solves of the sparse main path's first
+  iteration (recorded from `core.run`);
+* K2: ba_10000's cold traffic, marginals and taint-pair solves and the
+  seven solves of its main path's first iteration;
+* K3: the two QP calls of each main path's first iteration and
+  ba_10000's data rows under a random 70 % mask;
+* main_path: `core.run` for 20 iterations on sw_1000 and ba_10000, ms
+  an iteration untraced (the median of three runs after a warm-up), with
+  the sources' libraries, with each variant's alone, and with every
+  variant's at once, in that order and reversed, PATH_ROUNDS times over
+  (so each pair of neighbours alternates PATH_ROUNDS times); each run's
+  costs held to the JAX golden by `chip_smoke.check_costs`.
 
-Each variant is checked against the plain version first (K2 bit for
-bit; 2e-2 / one ulp in bf16, 2e-4 / rtol 1e-5 of Σ|x·w| in float32).
-One JSON line a case.
+Each variant is checked against the plain version first (K1 and K2 bit
+for bit with equal rounds; K3 to 1e-5; 2e-2 / one ulp in bf16, 2e-4 /
+rtol 1e-5 of Σ|x·w| in float32).  One JSON line a case.
 """
 import argparse
 import ctypes
@@ -87,8 +98,11 @@ def build_variants(build, variants):
 
 
 KERNELS = ("flash_attention", "decode_attention", "moe_gmm",
-           "edge_rounds_bucketed")
+           "edge_rounds", "edge_rounds_bucketed", "simplex_project",
+           "main_path")
+PATH_SOURCES = ("edge_rounds", "simplex_project")
 SOURCE_OF = {"edge_rounds_bucketed": "edge_rounds"}
+PATH_ROUNDS = 10
 
 
 def main() -> int:
@@ -110,8 +124,12 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    sources = sorted({SOURCE_OF.get(k, k) for k in only})
-    _build.build_all(sources)
+    sources = sorted({SOURCE_OF.get(k, k) for k in only
+                      if k != "main_path"}
+                     | (set(PATH_SOURCES) if "main_path" in only else set()))
+    for name, report in _build.build_all(sources).items():
+        print(json.dumps({"source": name,
+                          "ptxas": cs.ptxas_summary(report)}), flush=True)
     libs = {k: {"source": _build.load(k)} for k in sources}
     for (kernel, label), lib in build_variants(_build, args.variant).items():
         libs[kernel][label] = lib
@@ -144,8 +162,14 @@ def main() -> int:
                      args.split_max)
     if "moe_gmm" in only:
         gmm_ab(torch, cs, ref, ab)
+    if "edge_rounds" in only:
+        k1_ab(torch, cs, ref, ab)
     if "edge_rounds_bucketed" in only:
         k2_ab(torch, cs, ref, ab)
+    if "simplex_project" in only:
+        k3_ab(torch, cs, ref, ab)
+    if "main_path" in only:
+        path_ab(torch, cs, _build, libs)
     return 0
 
 
@@ -228,15 +252,70 @@ def gmm_ab(torch, cs, ref, ab):
               flush=True)
 
 
+def path_operands(torch, cs, name):
+    """(net, Neighbors, NeighborBuckets, the recorded operands of the
+    main path's first iteration) of one scenario, on the card."""
+    from repro_torch import core
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    net = core.make_scenario(core.TABLE_II[name], device=dev)
+    nb, bk = core.build_neighbors(net.adj), core.build_buckets(net.adj)
+    rec = cs.record_path_operands(torch, core, ops, net, nb, bk,
+                                  dict(cs.PATHS)[name])
+    return net, nb, bk, rec
+
+
+def k1_ab(torch, cs, ref, ab):
+    """K1 at sw_1000's cold solves and its main path's first-iteration
+    solves, checked bit for bit."""
+    from repro_torch.kernels import edge_rounds as er
+    net, nb, _, rec = path_operands(torch, cs, "sw_1000")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    S, V = net.S, net.V
+    i32, u8 = torch.int32, torch.uint8
+    w_out = cs.substochastic(torch, gen, nb.out_mask, S, 0.9)
+    sup = ((torch.rand((2 * S, V, nb.Dmax), generator=gen, device=dev)
+            < 0.3) & nb.out_mask).to(torch.bfloat16)
+    seeds = (torch.rand((2 * S, V), generator=gen, device=dev)
+             < 0.02).to(torch.bfloat16)
+    dag = nb.out_mask & (nb.out_nbr > torch.arange(V, device=dev)[:, None])
+    tiles_in = (nb.in_nbr.to(i32), nb.in_mask.to(u8))
+    tiles_out = (nb.out_nbr.to(i32), nb.out_mask.to(u8))
+    cases = [("cold traffic", (w_out[:, nb.in_nbr, nb.in_slot], net.r,
+                               *tiles_in, "sum", 0.0, V)),
+             ("cold taint pair", (sup, seeds, *tiles_out, "max", 0.0, V)),
+             ("cold longest path", (dag.float()[None].expand(
+                 S, V, nb.Dmax).contiguous(), torch.zeros((S, V),
+                                                          device=dev),
+                 *tiles_out, "max", 1.0, V))]
+    cases += [(f"path call {i}", a) for i, a in enumerate(rec["edge_rounds"])]
+    for label, (w, b, nbr, mask, reduce, shift, max_rounds) in cases:
+        want = ref.edge_rounds_ref(w, b, nbr.long(), mask.bool(), reduce,
+                                   shift, max_rounds)
+
+        def call():
+            return er.edge_rounds_cuda(w, b, nbr, mask, reduce, shift,
+                                       max_rounds)
+
+        def check(got):
+            return 0.0, bool(torch.equal(got[0], want[0])
+                             and int(got[1].max()) == want[1])
+        times = ab("edge_rounds", call, None, None, check)
+        plan = er.k1_plan(w.shape[0], *nbr.shape)
+        print(json.dumps({"kernel": "edge_rounds", "case": label,
+                          "S": w.shape[0], "reduce": reduce,
+                          "dtype": str(w.dtype), "rounds": want[1],
+                          "cluster": plan.size, "slots": plan.slots,
+                          "ms": times}), flush=True)
+
+
 def k2_ab(torch, cs, ref, ab):
     """K2 at ba_10000's cold solves and its main path's first-iteration
     solves (inputs recorded from `core.run`), checked bit for bit."""
-    from repro_torch import core
-    from repro_torch.kernels import ops
     from repro_torch.kernels.edge_rounds import edge_rounds_bucketed_cuda
+    net, nb, bk, rec = path_operands(torch, cs, "ba_10000")
     dev = torch.device("cuda")
-    net = core.make_scenario(core.TABLE_II["ba_10000"], device=dev)
-    nb, bk = core.build_neighbors(net.adj), core.build_buckets(net.adj)
     gen = torch.Generator(device=dev).manual_seed(0)
     S, V = net.S, net.V
     w_out = cs.substochastic(torch, gen, nb.out_mask, S, 0.9)
@@ -249,19 +328,8 @@ def k2_ab(torch, cs, ref, ab):
                                                    device=dev), bk.out,
                                  "sum", 0.0, V)),
              ("cold taint pair", (sup, seeds, bk.out, "max", 0.0, V))]
-    recorded = []
-
-    def record(w, b, eb, reduce="sum", shift=0.0, max_rounds=None):
-        recorded.append((w.clone(), b.clone(), eb, reduce, shift,
-                         max_rounds))
-        return edge_rounds_bucketed_cuda(w, b, eb, reduce, shift, max_rounds)
-    ops.edge_rounds_bucketed_cuda = record
-    try:
-        core.run(net, core.spt_phi_sparse(net, nb), n_iters=1,
-                 bucketed=True, nbrs=nb, buckets=bk)
-    finally:
-        ops.edge_rounds_bucketed_cuda = edge_rounds_bucketed_cuda
-    cases += [(f"path call {i}", a) for i, a in enumerate(recorded)]
+    cases += [(f"path call {i}", a)
+              for i, a in enumerate(rec["edge_rounds_bucketed"])]
     for label, (w, b, eb, reduce, shift, max_rounds) in cases:
         want, _ = ref.edge_rounds_bucketed_ref(w, b, eb, reduce, shift,
                                                max_rounds)
@@ -273,6 +341,88 @@ def k2_ab(torch, cs, ref, ab):
         print(json.dumps({"kernel": "edge_rounds_bucketed", "case": label,
                           "S": w.shape[0], "reduce": reduce,
                           "dtype": str(w.dtype), "ms": times}), flush=True)
+
+
+def k3_ab(torch, cs, ref, ab):
+    """K3 at both main paths' first-iteration QPs and ba_10000's rows
+    under a random 70 % mask, to 1e-5."""
+    from repro_torch.kernels import simplex_project as spm
+    dev = torch.device("cuda")
+    cases = []
+    for name, _ in cs.PATHS:
+        net, nb, _, rec = path_operands(torch, cs, name)
+        cases += [(f"{name} path call {i}", a[:4])
+                  for i, a in enumerate(rec["simplex_project"])]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    R, K = 160000, 278
+    phi = torch.rand((R, K), generator=gen, device=dev)
+    phi = phi / phi.sum(-1, keepdim=True)
+    perm = torch.rand((R, K), generator=gen, device=dev) < 0.7
+    perm[::11] = False
+    cases.append(("ba_10000 data rows, random 70 % mask", (
+        phi, torch.rand((R, K), generator=gen, device=dev) * 3,
+        torch.rand((R, K), generator=gen, device=dev) * 2 + 0.25, perm)))
+    for label, args in cases:
+        want = ref.simplex_project_ref(*args)
+
+        def call():
+            return spm.simplex_project_cuda(*args)
+
+        def check(got):
+            err = float((got - want).abs().max())
+            return err, err <= 1e-5
+        times = ab("simplex_project", call, want, None, check)
+        print(json.dumps({"kernel": "simplex_project", "case": label,
+                          "shape": list(args[0].shape),
+                          "permitted": int(args[3].sum()),
+                          "rows_per_warp": spm.rows_per_warp(
+                              args[0].shape[1]),
+                          "ms": times}), flush=True)
+
+
+def path_ab(torch, cs, build, libs):
+    """ms an iteration of both main paths with the path kernels' sources,
+    each variant alone and every variant at once, in that order and then
+    reversed, PATH_ROUNDS times; every run held to the golden costs."""
+    import statistics
+    import time
+    from repro_torch import core
+    dev = torch.device("cuda")
+    golden = cs.golden_costs(os.path.join(ROOT, "src"))
+    source = {k: libs[k]["source"] for k in PATH_SOURCES}
+    configs = [("sources", source)]
+    variants = [(k, label) for k in PATH_SOURCES for label in libs[k]
+                if label != "source"]
+    configs += [(label, {**source, k: libs[k][label]})
+                for k, label in variants]
+    if len(variants) > 1:
+        configs.append(("every variant", {**source, **{
+            k: libs[k][label] for k, label in variants}}))
+    for name, bucketed in cs.PATHS:
+        net = core.make_scenario(core.TABLE_II[name], device=dev)
+        nb, bk = core.build_neighbors(net.adj), core.build_buckets(net.adj)
+        phi0 = core.spt_phi_sparse(net, nb)
+        times = {}
+        for label, chosen in (configs + configs[::-1]) * (PATH_ROUNDS // 2):
+            build._LIBS.update(chosen)
+            runs = []
+            for rep in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, hist = core.run(net, phi0, n_iters=cs.N_ITERS,
+                                   bucketed=bucketed, nbrs=nb,
+                                   buckets=bk if bucketed else None)
+                torch.cuda.synchronize()
+                n_exec = len(hist["costs"]) - 1 + hist["n_rejected"]
+                if rep:                      # the first run warms up
+                    runs.append((time.perf_counter() - t0) * 1e3 / n_exec)
+                cs.check_costs(f"{name} with {label}", hist, golden[name])
+            times.setdefault(label, []).append(statistics.median(runs))
+        build._LIBS.update(source)
+        print(json.dumps({"main_path": name, "ms_per_iteration": times,
+                          "median": {k: statistics.median(v)
+                                     for k, v in times.items()}}),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -29,14 +29,18 @@
    replayed on new inputs and lengths (2e-2); `ssd_scan`
    (K6) on Mamba2-130M's prefill, x [B, L, 24, 64], dt [B, L, 24], A
    [24], B/C [B, L, 128], L in {17, 128, 256, 512} at B = 1 and L = 256
-   at B = 4, float32 and bfloat16, plus one float32 case from an initial
-   state: y to 1e-4 (float32) or 1e-2 (bfloat16, one ulp) and the final
-   state to 1e-4; `moe_gmm` (K7) on OLMoE's expert products, [64, C,
-   2048] @ [64, 2048, 1024] and [64, C, 1024] @ [64, 1024, 2048] at
-   C in {4, 52, 80}, plus two ragged shapes, in float32 (rtol 1e-5 of
-   Σ|x·w|) and bfloat16 (one ulp), at C = 4 also with 40 of 64 experts
-   `active` (equal to the dense kernel bit for bit), and one launch with
-   `active` replayed from a CUDA graph on new inputs and active sets.
+   at B = 4, float32 and bfloat16, the serve's short prompts (L 25 and
+   63) in bfloat16, and from an initial state at B = 2, L = 128 float32
+   and B = 1, L = 512 and B = 2, L = 1280 bfloat16, plus two ragged
+   shapes off the path (N 20 and 256, P 40 and 136): y to 1e-4 (float32)
+   or 1e-2 (bfloat16, one ulp) and the final state to 1e-4, each with
+   its kernel launches a call; `moe_gmm` (K7) on OLMoE's expert
+   products, [64, C, 2048] @ [64, 2048, 1024] and [64, C, 1024] @ [64,
+   1024, 2048] at C in {4, 52, 80}, plus two ragged shapes, in float32
+   (rtol 1e-5 of Σ|x·w|) and bfloat16 (one ulp), at C = 4 also with 40
+   of 64 experts `active` (equal to the dense kernel bit for bit), and
+   one launch with `active` replayed from a CUDA graph on new inputs
+   and active sets.
    Prints the times of each, and for K4 and K5 that of PyTorch's
    scaled_dot_product_attention, for K7 that of torch.bmm, on the same
    inputs as a yardstick (no PyTorch call computes K6's function); K1,
@@ -128,8 +132,10 @@ SERVE_CONFIG = {"max_slots": 8, "max_len": 1024, "max_new_tokens": 32,
 # engine settings, the requests of reference_serve_mamba2.json
 MAMBA_ARCH = "mamba2-130m"
 MAMBA_REQUESTS = 12
-# K6's own chunk (csrc/ssd_scan.cu, kQ): its operation count in bound_ms
-SSD_KERNEL_CHUNK = 64
+# the chunk of K6's operation count in bound_ms, fixed at the chunked
+# SSD's 64 so that the bound counts the same work whatever chunk the
+# kernel runs
+SSD_BOUND_CHUNK = 64
 # the OLMoE serving phases: olmoe-1b-7b at full width, the same seed,
 # engine settings and request recipe; float32 at OLMOE_F32_LAYERS layers
 # against reference_serve_olmoe.json, bfloat16 at all 16
@@ -918,12 +924,12 @@ def attention_kernel_checks(torch, emit_kernel):
     del graph
 
 
-def ssd_ops(B, L, H, P, N, Q=SSD_KERNEL_CHUNK) -> float:
-    """Floating-point operations of the chunked SSD at chunk Q, as K6
-    runs it: per chunk of q tokens the causal C·Bᵀ tile (q(q+1)/2·N
-    multiply-adds, shared by the heads), the causal intra-chunk product
-    (q(q+1)/2·H·P), the state read and the state update (q·N·H·P
-    each); two operations a multiply-add."""
+def ssd_ops(B, L, H, P, N, Q=SSD_BOUND_CHUNK) -> float:
+    """Floating-point operations of the chunked SSD at chunk Q: per chunk
+    of q tokens the causal C·Bᵀ tile (q(q+1)/2·N multiply-adds, shared
+    by the heads), the causal intra-chunk product (q(q+1)/2·H·P), the
+    state read and the state update (q·N·H·P each); two operations a
+    multiply-add."""
     total = 0.0
     for t0 in range(0, L, Q):
         q = min(Q, L - t0)
@@ -932,14 +938,39 @@ def ssd_ops(B, L, H, P, N, Q=SSD_KERNEL_CHUNK) -> float:
     return 2.0 * B * total
 
 
+def kernel_launches(torch, fn, prefix: str) -> int:
+    """Launches of the port's kernels named `prefix`... in one call of
+    `fn`, as the profiler records them; a window that came back with no
+    device event at all is taken again, as in `device_ms`."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")]
+        if events:
+            return sum(e.count for e in events if port_prefix(e.key) == prefix)
+        time.sleep(1.0)
+    raise RuntimeError("the profiler recorded no device event in five "
+                       "windows")
+
+
 def ssd_kernel_checks(torch, emit_kernel):
     """K6 against its plain version (the chunked SSD at chunk min(256, L))
     at the Mamba2-130M prefill's shapes, x [B, L, 24, 64], dt [B, L, 24],
-    A [24], B/C [B, L, 128], in float32 and bfloat16: y and the final
-    state.  Inputs as the model makes them: x, B and C through SiLU, dt
-    through softplus, A = -exp(A_log) with A_log in [0, log 16]."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    A [24], B/C [B, L, 128], in float32 and bfloat16, and at two ragged
+    shapes off the path: y and the final state.  Inputs as the model
+    makes them: x, B and C through SiLU, dt through softplus, A =
+    -exp(A_log) with A_log in [0, log 16].  Each record carries the
+    wrapper's plan (heads a CTA, grid, each kernel's shared memory, which
+    must equal the source's own count) and the kernel launches a call
+    makes (counted by the profiler, which must be the wrapper's
+    KERNEL_LAUNCHES)."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ssd_scan as smod
     gen = torch.Generator(device="cuda").manual_seed(2)
     silu = torch.nn.functional.silu
     # y: float32 sums of up to a few hundred terms taken in another order
@@ -949,52 +980,77 @@ def ssd_kernel_checks(torch, emit_kernel):
     # same inputs in both dtypes: 1e-4.
     y_tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     s_tol = 1e-4
-    H, P, N = 24, 64, 128
+    f32, bf16 = torch.float32, torch.bfloat16
+    mamba = (24, 64, 128)                        # H, P, N
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    cases = [(1, L, dt, False) for dt in (torch.float32, torch.bfloat16)
+    # (B, L, dtype, from an initial state, (H, P, N))
+    cases = [(1, L, dt, False, mamba) for dt in (f32, bf16)
              for L in (17, 128, 256, 512)]
-    cases += [(4, 256, dt, False) for dt in (torch.float32, torch.bfloat16)]
-    cases += [(2, 128, torch.float32, True)]      # with an initial state
-    for B, L, dt_, with_init in cases:
+    cases += [(4, 256, dt, False, mamba) for dt in (f32, bf16)]
+    cases += [(2, 128, f32, True, mamba)]
+    cases += [(1, 25, bf16, False, mamba), (1, 63, bf16, False, mamba),
+              (1, 512, bf16, True, mamba)]
+    # 20 chunks, a hand-off of 20 steps, 4 heads a CTA
+    cases += [(2, 1280, bf16, True, mamba)]
+    cases += [(2, 70, dt, True, (3, 40, 20)) for dt in (f32, bf16)]
+    cases += [(1, 130, dt, True, (5, 136, 256)) for dt in (f32, bf16)]
+    lib = _build.load("ssd_scan")
+    for B, L, dt_, with_init, (H, P, N) in cases:
         x = silu(randn(B, L, H, P)).to(dt_)
         Bm, Cm = silu(randn(B, L, N)).to(dt_), silu(randn(B, L, N)).to(dt_)
         dt = torch.nn.functional.softplus(randn(B, L, H) - 1.0)
         A = -torch.exp(torch.rand((H,), generator=gen, device="cuda")
                        * math.log(16.0))
         init = randn(B, H, N, P) if with_init else None
-        y, state = ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=init)
+        plan = smod.ssd_plan(B, L, H, P, N, dt_ == bf16)
+        smem = [lib.ssd_scan_smem(int(dt_ == bf16), N, plan.heads, k)
+                for k in (0, 1)]
+        require(smem == [plan.smem_states, plan.smem_output],
+                f"K6: the plan's shared memory {plan} is not the "
+                f"source's {smem}")
+        y, state = smod.ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=init)
         torch.cuda.synchronize()
         wy, ws = ref.ssd_scan_ref(x, dt, A, Bm, Cm, init_state=init)
         err_y, ok_y = allclose(torch, y, wy, y_tol[dt_])
         err_s, ok_s = allclose(torch, state, ws, s_tol)
-        label = f"K6 B={B} L={L} {dt_}" + (" init" if with_init else "")
+        label = f"K6 B={B} L={L} {dt_}" + (" init" if with_init else "") \
+            + ("" if (H, P, N) == mamba else f" H={H} P={P} N={N}")
         require(y.dtype == dt_ and state.dtype == torch.float32,
                 f"{label}: output dtypes {y.dtype}, {state.dtype}")
         require(ok_y, f"{label}: y max abs err {err_y} beyond {y_tol[dt_]}")
         require(ok_s, f"{label}: final state max abs err {err_s} beyond "
                 f"{s_tol}")
-        calls = (lambda: ssd_scan_cuda(x, dt, A, Bm, Cm, init_state=init),
+        calls = (lambda: smod.ssd_scan_cuda(x, dt, A, Bm, Cm,
+                                            init_state=init),
                  lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm,
                                           init_state=init))
         ms, plain = (device_ms(torch, fn, 10) for fn in calls)
         ev_ms, ev_plain = (time_ms(torch, fn, 10) for fn in calls)
+        launches = kernel_launches(torch, calls[0], "ssd_scan")
+        require(launches == smod.KERNEL_LAUNCHES, f"{label}: {launches} "
+                f"kernel launches a call, not {smod.KERNEL_LAUNCHES}")
         elt = x.element_size()
         n_bytes = (2 * x.numel() + Bm.numel() + Cm.numel()) * elt \
             + 4 * (dt.numel() + H + state.numel()
                    + (init.numel() if with_init else 0))
-        bms, by = bound_ms(n_bytes, ssd_ops(B, L, H, P, N))
+        # bf16 runs its products on the tensor cores
+        bms, by = bound_ms(n_bytes, ssd_ops(B, L, H, P, N),
+                           PEAK_BF16_FLOPS if dt_ == bf16 else PEAK_F32_FLOPS)
         emit({"phase": "kernel", "kernel": "ssd_scan", "case": label,
               "x": [B, L, H, P], "N": N, "dtype": str(dt_),
+              "heads_a_cta": plan.heads, "grid": list(plan.grid(B)),
+              "smem_bytes": smem, "kernel_launches": launches,
               "max_abs_err": err_y, "tol": y_tol[dt_],
               "state_max_abs_err": err_s, "state_tol": s_tol,
               "max_abs_y": float(wy.float().abs().max()),
               "ms": ms, "plain_ms": plain, "event_ms": [ev_ms, ev_plain],
               "bound_ms": bms, "bound_by": by})
         emit_kernel("ssd_scan", max_abs_err=max(err_y, err_s),
-                    main=(B == 1 and L == 512 and dt_ == torch.bfloat16),
+                    main=(B == 1 and L == 512 and dt_ == bf16
+                          and not with_init),
                     ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                     library_ms=None)
 
@@ -1799,9 +1855,15 @@ def profile_decode(torch, model, prompts, label, top=12):
                   for k, ms, n in rows[:top]],
           # the port's own kernels (csrc/), wherever they rank
           "port_kernels": [{"kernel": k[:80], "ms": ms, "calls": n}
-                           for k, ms, n in rows
-                           if k.split("(anonymous namespace)::", 1)[-1]
-                           .startswith(PORT_KERNEL_PREFIXES)]})
+                           for k, ms, n in rows if port_prefix(k)]})
+
+
+def port_prefix(key: str):
+    """The PORT_KERNEL_PREFIXES entry a profiler key starts with, or
+    None."""
+    name = key.split("(anonymous namespace)::", 1)[-1]
+    return next((p for p in PORT_KERNEL_PREFIXES if name.startswith(p)),
+                None)
 
 
 if __name__ == "__main__":

@@ -99,7 +99,9 @@ _SIGNATURES = {
                                    + [_FLOAT, _PTR],
     },
     "ssd_scan": {
-        "ssd_scan_launch": [_INT] + [_PTR] * 8 + [_INT] * 5 + [_PTR],
+        "ssd_scan_chunks_launch": [_INT] + [_PTR] * 11 + [_INT] * 6
+                                  + [_PTR],
+        "ssd_scan_smem": [_INT] * 4,
     },
     "moe_gmm": {
         "moe_gmm_launch": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,

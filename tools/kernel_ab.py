@@ -5,16 +5,18 @@
                                [--split-max 32,64,128,256]
                                [--only flash_attention,decode_attention,
                                        moe_gmm,edge_rounds,
-                                       edge_rounds_bucketed,simplex_project]
+                                       edge_rounds_bucketed,simplex_project,
+                                       ssd_scan,main_path]
 
 Builds the port's `flash_attention` (K4), `decode_attention` (K5),
-`moe_gmm` (K7), `edge_rounds` (K1, K2) and `simplex_project` (K3) from
-`src/repro_torch/kernels/csrc`, and each variant source (a `.cu` with
-the same C interface, named by the source it stands in for) with the
-same nvcc flags.  For every case of the kernel's path it times the
-port's wrapper by profiler device time with the source's library and
-with each variant's swapped in, in the order source, variants,
-variants reversed, source:
+`moe_gmm` (K7), `edge_rounds` (K1, K2), `simplex_project` (K3) and
+`ssd_scan` (K6) from `src/repro_torch/kernels/csrc`, and each variant
+source (a `.cu` with the same C interface, named by the source it
+stands in for; for `ssd_scan` also the serial-chunk kernel's interface,
+`ssd_scan_launch` without scratch) with the same nvcc flags.  For every
+case of the kernel's path it times the port's wrapper by profiler
+device time with the source's library and with each variant's swapped
+in, in the order source, variants, variants reversed, source:
 
 * K4: Qwen3-0.6B's and OLMoE's bf16 causal prefill at L in {17, 128,
   333, 512}, beside PyTorch's scaled_dot_product_attention;
@@ -33,6 +35,9 @@ variants reversed, source:
   seven solves of its main path's first iteration;
 * K3: the two QP calls of each main path's first iteration and
   ba_10000's data rows under a random 70 % mask;
+* K6: Mamba2-130M's prefill scan (x [1, L, 24, 64], B/C [1, L, 128])
+  at the 12 prompt lengths of its serve, in bf16 and float32, and the
+  serve's sum over them (24 layers);
 * main_path: `core.run` for 20 iterations on sw_1000 and ba_10000, ms
   an iteration untraced (the median of three runs after a warm-up), with
   the sources' libraries, with each variant's alone, and with every
@@ -42,7 +47,8 @@ variants reversed, source:
 
 Each variant is checked against the plain version first (K1 and K2 bit
 for bit with equal rounds; K3 to 1e-5; 2e-2 / one ulp in bf16, 2e-4 /
-rtol 1e-5 of Σ|x·w| in float32).  One JSON line a case.
+rtol 1e-5 of Σ|x·w| in float32; K6 as `chip_smoke.py` holds it).  One
+JSON line a case.
 """
 import argparse
 import ctypes
@@ -90,16 +96,39 @@ def build_variants(build, variants):
         print(json.dumps({"variant": path,
                           "ptxas": cs.ptxas_summary(report)}), flush=True)
         lib = ctypes.CDLL(so)
-        for fn, argtypes in build._SIGNATURES[kernel].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+        if kernel == "ssd_scan" and not hasattr(lib,
+                                                "ssd_scan_chunks_launch"):
+            lib = SerialSSD(lib)
+        else:
+            for fn, argtypes in build._SIGNATURES[kernel].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
         out[(kernel, os.path.basename(path))] = lib
     return out
 
 
+class SerialSSD:
+    """A K6 library with the earlier C interface (`ssd_scan_launch`: the
+    chunks walked in series, no scratch) behind the current wrapper's
+    call, whose scratch and head count it drops."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        lib.ssd_scan_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                                        + [ctypes.c_int] * 5
+                                        + [ctypes.c_void_p])
+        lib.ssd_scan_launch.restype = ctypes.c_int
+
+    def ssd_scan_chunks_launch(self, bf16, x, dt, A, Bm, Cm, init, y, fin,
+                               states, prev, totals, B, L, H, P, N, heads,
+                               stream):
+        return self.lib.ssd_scan_launch(bf16, x, dt, A, Bm, Cm, init, y,
+                                        fin, B, L, H, P, N, stream)
+
+
 KERNELS = ("flash_attention", "decode_attention", "moe_gmm",
            "edge_rounds", "edge_rounds_bucketed", "simplex_project",
-           "main_path")
+           "ssd_scan", "main_path")
 PATH_SOURCES = ("edge_rounds", "simplex_project")
 SOURCE_OF = {"edge_rounds_bucketed": "edge_rounds"}
 PATH_ROUNDS = 10
@@ -168,6 +197,8 @@ def main() -> int:
         k2_ab(torch, cs, ref, ab)
     if "simplex_project" in only:
         k3_ab(torch, cs, ref, ab)
+    if "ssd_scan" in only:
+        ssd_ab(torch, cs, ref, ab)
     if "main_path" in only:
         path_ab(torch, cs, _build, libs)
     return 0
@@ -378,6 +409,56 @@ def k3_ab(torch, cs, ref, ab):
                           "rows_per_warp": spm.rows_per_warp(
                               args[0].shape[1]),
                           "ms": times}), flush=True)
+
+
+def ssd_ab(torch, cs, ref, ab):
+    """K6 at the Mamba2 serve's prefill shapes, each case held to the
+    plain version first (y 1e-2 bf16 / 1e-4 float32, state 1e-4)."""
+    import math
+    from repro_torch.kernels import ssd_scan as smod
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    H, P, N = 24, 64, 128
+    silu = torch.nn.functional.silu
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    with open(os.path.join(ROOT, "src", "repro_torch", "data",
+                           "reference_serve_mamba2.json")) as f:
+        prompts = [len(r["prompt"]) for r in json.load(f)["requests"]]
+    for dt_ in (torch.bfloat16, torch.float32):
+        bf16 = dt_ == torch.bfloat16
+        tol = 1e-2 if bf16 else 1e-4
+        serve = {}
+        for L in sorted(set(prompts)):
+            x = silu(randn(1, L, H, P)).to(dt_)
+            Bm = silu(randn(1, L, N)).to(dt_)
+            Cm = silu(randn(1, L, N)).to(dt_)
+            dt = torch.nn.functional.softplus(randn(1, L, H) - 1.0)
+            A = -torch.exp(torch.rand((H,), generator=gen, device="cuda")
+                           * math.log(16.0))
+            wy, ws = ref.ssd_scan_ref(x, dt, A, Bm, Cm)
+
+            def call():
+                return smod.ssd_scan_cuda(x, dt, A, Bm, Cm)
+
+            def check(got):
+                ey, oky = cs.allclose(torch, got[0], wy, tol)
+                es, oks = cs.allclose(torch, got[1], ws, 1e-4)
+                return max(ey, es), oky and oks
+            times = ab("ssd_scan", call, None, None, check)
+            serve[L] = times
+            print(json.dumps({"kernel": "ssd_scan", "dtype": str(dt_),
+                              "x": [1, L, H, P], "N": N,
+                              "heads": smod.ssd_plan(1, L, H, P, N,
+                                                     bf16).heads,
+                              "ms": times}), flush=True)
+        # each label's mean over the serve's 24 layers and 12 prompts
+        print(json.dumps({"kernel": "ssd_scan", "dtype": str(dt_),
+                          "serve_sum_ms": {label: 24 * sum(
+                              sum(serve[L][label]) / len(serve[L][label])
+                              for L in prompts)
+                              for label in serve[512]}}), flush=True)
 
 
 def path_ab(torch, cs, build, libs):

@@ -48,12 +48,27 @@
    CUDA events around the run are printed beside it, and the kernel's
    ratio to SDPA), K2 by CUDA events.
 3. Drives the sparse main path, Algorithm 1 for 20 iterations: sw_1000
-   padded (K1 + K3) and ba_10000 bucketed (K2 + K3).  The launch counts
-   must be 2 + 5·n and 2·n for the n iterations executed, every cost
-   finite and non-increasing, and the accepted costs equal to the JAX
-   reference's golden trajectory (`src/repro_torch/data/
-   reference_costs.json`) to rtol 2e-4.  A traced 3-iteration run then
-   gives K1, K2 and K3's device time a launch on the path's own inputs.
+   padded (K1 + K3) and ba_10000 bucketed (K2 + K3), each under both
+   drivers (`init_run_state` + `run_chunk`): the host loop, and the
+   fused driver, whose iteration is one CUDA graph captured once and
+   replayed.  The launch counts must be 2 + 5·n and 2·n for the n
+   iterations dispatched (the fused driver's counted through its
+   replays), every cost finite and non-increasing, the accepted costs
+   equal to the JAX reference's golden trajectory (`src/repro_torch/
+   data/reference_costs.json`) to rtol 2e-4, and the fused run equal to
+   the host run bit for bit (costs, rejections, final φ).  Then the
+   options path: the same two scenarios under `scaling="paper",
+   refresh_every=5` (κ = 1, so each iteration also solves the stacked
+   longest-path recursion, K1 / K2 with `max, shift=1`): 2 + 6·n
+   recursion launches, both drivers against the goldens `sw_1000_paper`
+   and `ba_10000_paper` and bit for bit against each other.  Each
+   record carries its driver and ms an iteration, the fused ones the
+   graph's capture seconds and pool bytes; both drivers are then timed
+   again in alternating rounds.  The longest-path solves of the options
+   path's first iteration (operands recorded from `run_chunk`) are held
+   against their plain versions and timed, and a traced 3-iteration run
+   of each path gives K1, K2 and K3's device time a launch (and each
+   kernel instantiation's) on the path's own inputs.
 4. Serves Qwen3-0.6B (28 layers), then Mamba2-130M (24 layers), at full
    width through `ServingEngine`, random weights from SERVE_SEED: 12
    requests on 8 slots, max_len 1024, 32 new tokens (Mamba2's prompts
@@ -94,10 +109,10 @@
 6. Prints one `kernels` JSON line and, last, the device line.
 
 With `--profile` it also traces one more 20-iteration run of each sparse
-path, and one bfloat16 serve of each of the three models, with
-torch.profiler and
-prints the device time by kernel and the device's busy share (not part
-of the checks above).
+path (both scenarios, default and paper options) under each driver,
+and one bfloat16 serve of each of the three models, with torch.profiler
+and prints the device time by kernel and the device's busy share (not
+part of the checks above).
 
 Exits non-zero on any failure, and when no CUDA device is present.
 Every earlier line is a JSON record, except the nvidia-smi line.
@@ -116,6 +131,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_ITERS = 20
 PATHS = (("sw_1000", False), ("ba_10000", True))   # (scenario, bucketed)
+DRIVERS = ("host", "fused")
+# the options path's run options (its goldens: "<scenario>_paper")
+PAPER_OPTS = {"scaling": "paper", "refresh_every": 5}
+# (label, run options, recursion launches an iteration beyond the 2 of φ⁰)
+PATH_OPTIONS = (("default", {}, 5), ("paper", PAPER_OPTS, 6))
+TIMING_ROUNDS = 3
 # published H100 SXM peaks (dense): HBM3 bytes/s, float32 outside the
 # tensor cores; the card's power limit is printed beside them
 PEAK_BYTES_PER_S = 3.35e12
@@ -355,6 +376,21 @@ def main() -> int:
             path_ops["sw_1000"]["edge_rounds"]):
         k1_case(f"sw_1000 path call {i} ({reduce})", w, b, nbr32, mask8,
                 reduce, shift, max_rounds)
+    # the options path (scaling="paper": κ = 1) adds the stacked
+    # longest-path recursion, max with shift = 1, to every iteration
+    paper_ops = {name: record_path_operands(
+        torch, core, ops, nets[name], nbrs[name], bks[name], bucketed,
+        PAPER_OPTS) for name, bucketed in PATHS}
+    for i, (w, b, nbr32, mask8, reduce, shift, max_rounds) in enumerate(
+            paper_ops["sw_1000"]["edge_rounds"]):
+        if shift == 1.0:
+            k1_case(f"sw_1000 paper path call {i} (longest path, max "
+                    "shift=1)", w, b, nbr32, mask8, reduce, shift,
+                    max_rounds)
+            stacked_check(torch, f"K1 sw_1000 paper path call {i}", w, b,
+                          lambda w_, b_: edge_rounds_cuda(
+                              w_, b_, nbr32, mask8, reduce, shift,
+                              max_rounds)[0])
 
     net, nb = nets["sw_1000"], nbrs["sw_1000"]
     S, V = net.S, net.V
@@ -388,27 +424,30 @@ def main() -> int:
     net, nb, bk = nets["ba_10000"], nbrs["ba_10000"], bks["ba_10000"]
     S, V = net.S, net.V
 
-    def k2_case(label, w, b, eb, nbr, mask, w_pad, reduce, main=False):
+    def k2_case(label, w, b, eb, nbr, mask, w_pad, reduce, main=False,
+                shift=0.0):
         plan = cluster_plan(eb, cluster_size(w.shape[0], eb.lanes))
-        x, rounds = edge_rounds_bucketed_cuda(w, b, eb, reduce)
+        x, rounds = edge_rounds_bucketed_cuda(w, b, eb, reduce, shift)
         torch.cuda.synchronize()
-        xr, kr = ref.edge_rounds_bucketed_ref(w, b, eb, reduce)
+        xr, kr = ref.edge_rounds_bucketed_ref(w, b, eb, reduce, shift)
         xp, kp = edge_rounds_cuda(w_pad, b, nbr.to(torch.int32),
-                                  mask.to(torch.uint8), reduce)
+                                  mask.to(torch.uint8), reduce, shift)
         torch.cuda.synchronize()
         require(torch.equal(x, xr), f"K2 {label}: kernel != plain")
         require(torch.equal(x, xp), f"K2 {label}: bucketed != padded K1")
         require(int(rounds.max()) == kr == int(kp.max()),
                 f"K2 {label}: round counts differ")
         ms = time_ms(torch, lambda: edge_rounds_bucketed_cuda(
-            w, b, eb, reduce), 20)
+            w, b, eb, reduce, shift), 20)
         plain = time_ms(torch, lambda: ref.edge_rounds_bucketed_ref(
-            w, b, eb, reduce), 3)
+            w, b, eb, reduce, shift), 3)
         k1_ms = time_ms(torch, lambda: edge_rounds_cuda(
-            w_pad, b, nbr.to(torch.int32), mask.to(torch.uint8), reduce), 5)
+            w_pad, b, nbr.to(torch.int32), mask.to(torch.uint8), reduce,
+            shift), 5)
         lanes = eb.lanes
-        n_bytes = (S * lanes * w.element_size() + lanes * 13 + V * 4
-                   + b.numel() * b.element_size()
+        # every task row's weights read once over its lanes
+        n_bytes = (w.shape[0] * lanes * w.element_size() + lanes * 13
+                   + V * 4 + b.numel() * b.element_size()
                    + x.numel() * x.element_size())
         n_ops = 3.0 * float(rounds.sum()) * lanes
         bms, by = bound_ms(n_bytes, n_ops)
@@ -416,6 +455,7 @@ def main() -> int:
               "case": label, "shape": list(w.shape), "dtype": str(w.dtype),
               "lanes": lanes, "cluster": plan.size,
               "smem_bytes_per_cta": plan.smem_bytes, "reduce": reduce,
+              "shift": shift,
               "bitwise": True,
               "rounds_max": int(rounds.max()), "ms": ms, "plain_ms": plain,
               "padded_k1_ms": k1_ms, "bound_ms": bms, "bound_by": by})
@@ -435,6 +475,15 @@ def main() -> int:
              < 0.02).to(torch.bfloat16)
     k2_case("ba_10000 taint pair max bf16", sup, seeds, bk.out, nb.out_nbr,
             nb.out_mask, sup, "max")
+    for i, (w, b, eb, reduce, shift, max_rounds) in enumerate(
+            paper_ops["ba_10000"]["edge_rounds_bucketed"]):
+        if shift == 1.0:
+            k2_case(f"ba_10000 paper path call {i} (longest path, max "
+                    "shift=1)", w, b, eb, nb.out_nbr, nb.out_mask, w,
+                    reduce, shift=shift)
+            stacked_check(torch, f"K2 ba_10000 paper path call {i}", w, b,
+                          lambda w_, b_: edge_rounds_bucketed_cuda(
+                              w_, b_, eb, reduce, shift, max_rounds)[0])
 
     # ------------------------------------------------ K3 simplex_project
     def k3_case(label, phi, delta, M, perm, main=False):
@@ -498,37 +547,69 @@ def main() -> int:
     # -------------------------------------------------------- main path
     golden = golden_costs(src)
     path_launches = {}
-    for name, bucketed in PATHS:
-        net = nets[name]
-        phi0 = core.spt_phi_sparse(net, nbrs[name])
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        _, hist = core.run(net, phi0, n_iters=N_ITERS, bucketed=bucketed,
-                           nbrs=nbrs[name],
-                           buckets=bks[name] if bucketed else None)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = ops.launches()
-        costs = hist["costs"]
-        n_exec = len(costs) - 1 + hist["n_rejected"]
-        rounds_kernel = "edge_rounds_bucketed" if bucketed else "edge_rounds"
-        want = {k: 0 for k in counts}
-        want.update({rounds_kernel: 2 + 5 * n_exec,
-                     "simplex_project": 2 * n_exec})
-        require(counts == want, f"{name}: launches {counts} != {want}")
-        rel = check_costs(name, hist, golden[name])
-        for k in ("edge_rounds", "edge_rounds_bucketed", "simplex_project"):
-            path_launches[k] = path_launches.get(k, 0) + counts[k]
-        emit({"phase": "main_path", "scenario": name, "bucketed": bucketed,
-              "iterations": n_exec, "rejected": hist["n_rejected"],
-              "launches": counts, "seconds": seconds,
-              "ms_per_iteration": seconds * 1e3 / n_exec,
-              "first_cost": costs[0], "final_cost": costs[-1],
-              "max_rel_err_vs_reference": rel,
-              "warm_launch_ms": path_launch_ms(torch, core, net, phi0,
-                                               nbrs[name], bks[name],
-                                               bucketed)})
+    for label, opts, per_it in PATH_OPTIONS:
+        for name, bucketed in PATHS:
+            key = name if label == "default" else f"{name}_{label}"
+            phi0 = core.spt_phi_sparse(nets[name], nbrs[name])
+            args = (torch, core, ops, nets[name], phi0, nbrs[name],
+                    bks[name], bucketed, opts)
+            runs = {}
+            for driver in DRIVERS:
+                state, counts, seconds = drive_path(*args, driver)
+                hist = {"costs": state.costs,
+                        "n_rejected": state.n_rejected}
+                n_exec = len(state.costs) - 1 + state.n_rejected
+                # the fused driver dispatches every iteration, frozen or not
+                n = N_ITERS if driver == "fused" else n_exec
+                rounds_kernel = ("edge_rounds_bucketed" if bucketed
+                                 else "edge_rounds")
+                want = {k: 0 for k in counts}
+                want.update({rounds_kernel: 2 + per_it * n,
+                             "simplex_project": 2 * n})
+                require(counts == want, f"{key} {driver}: launches {counts} "
+                        f"!= {want}")
+                rel = check_costs(f"{key} {driver}", hist, golden[key])
+                for k in ("edge_rounds", "edge_rounds_bucketed",
+                          "simplex_project"):
+                    path_launches[k] = path_launches.get(k, 0) + counts[k]
+                runs[driver] = state
+                emit({"phase": "main_path", "scenario": name,
+                      "options": label, "run_options": opts,
+                      "bucketed": bucketed, "driver": driver,
+                      "iterations": n_exec, "dispatched": n,
+                      "rejected": state.n_rejected, "launches": counts,
+                      "seconds": seconds,
+                      "ms_per_iteration": seconds * 1e3 / n,
+                      "first_cost": state.costs[0],
+                      "final_cost": state.costs[-1],
+                      "max_rel_err_vs_reference": rel,
+                      "graph": state.graph_stats})
+            host, fused = runs["host"], runs["fused"]
+            require(host.costs == fused.costs
+                    and host.n_rejected == fused.n_rejected
+                    and all(torch.equal(a, b) for a, b in
+                            zip(core.sgp._fields(host.phi),
+                                core.sgp._fields(fused.phi))),
+                    f"{key}: the fused driver differs from the host driver")
+            times = {d: [] for d in DRIVERS}
+            capture_s = []
+            for r in range(TIMING_ROUNDS):
+                for driver in (DRIVERS if r % 2 == 0 else DRIVERS[::-1]):
+                    state, _, seconds = drive_path(*args, driver)
+                    times[driver].append(seconds * 1e3 / N_ITERS)
+                    if driver == "fused":
+                        capture_s.append(state.graph_stats["capture_s"])
+            emit({"phase": "drivers", "scenario": name, "options": label,
+                  "bitwise_fused_equals_host": True,
+                  "ms_per_iteration": times,
+                  # the fused chunk's one capture, spread over its
+                  # iterations, is in its ms an iteration above
+                  "fused_capture_s": capture_s,
+                  "median_ms_per_iteration": {
+                      d: sorted(v)[len(v) // 2] for d, v in times.items()},
+                  "warm_launch_ms": path_launch_ms(
+                      torch, core, nets[name], phi0, nbrs[name], bks[name],
+                      bucketed, opts)})
     # ------------------------------------- serving Qwen3-0.6B, Mamba2-130M
     serve_counts, serve_bf16 = serve_checks(
         torch, src, SERVE_ARCH, "reference_serve.json", SERVE_REQUESTS,
@@ -575,7 +656,7 @@ def main() -> int:
          "library_ms": results[k].get("library_ms")}
         for k in sources]})
     if "--profile" in sys.argv[1:]:
-        profile_paths(torch, core, nets, nbrs, bks)
+        profile_paths(torch, core, ops, nets, nbrs, bks)
         profile_decode(torch, *serve_bf16, label=f"serve {SERVE_ARCH} "
                        "bfloat16")
         profile_decode(torch, *mamba_bf16, label=f"serve {MAMBA_ARCH} "
@@ -588,40 +669,76 @@ def main() -> int:
     return 0
 
 
-def profile_paths(torch, core, nets, nbrs, bks, top=12):
+def stacked_check(torch, label, w, b, solve):
+    """The stacked pair of fixed points (`w`, `b`: two problems along the
+    task axis) against each half solved alone: equal bit for bit."""
+    whole = solve(w, b)
+    h = w.shape[0] // 2
+    halves = torch.cat([solve(w[:h].contiguous(), b[:h].contiguous()),
+                        solve(w[h:].contiguous(), b[h:].contiguous())])
+    torch.cuda.synchronize()
+    require(torch.equal(whole, halves), f"{label}: the stacked solve "
+            "differs from the unstacked ones")
+    emit({"phase": "stacked_check", "case": label, "shape": list(w.shape),
+          "bitwise": True, "max_path_len": float(whole.max())})
+
+
+def drive_path(torch, core, ops, net, phi0, nbrs, bks, bucketed, opts,
+               driver):
+    """One 20-iteration run of a sparse path from `phi0` through
+    `init_run_state` and `run_chunk`, the launch counters set to 0 just
+    before it.  Returns (state, launch counts, wall seconds)."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state = core.init_run_state(net, phi0, nbrs=nbrs, bucketed=bucketed,
+                                buckets=bks if bucketed else None)
+    core.run_chunk(net, state, N_ITERS, driver=driver, **opts)
+    torch.cuda.synchronize()
+    return state, ops.launches(), time.perf_counter() - t0
+
+
+def profile_paths(torch, core, ops, nets, nbrs, bks, top=12):
     """Device time by kernel name and the device's busy share over one
-    traced 20-iteration run of each main path."""
+    traced 20-iteration run of each sparse path under each driver."""
     from torch.profiler import ProfilerActivity, profile
-    for name, bucketed in PATHS:
-        phi0 = core.spt_phi_sparse(nets[name], nbrs[name])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            core.run(nets[name], phi0, n_iters=N_ITERS, bucketed=bucketed,
-                     nbrs=nbrs[name], buckets=bks[name] if bucketed else None)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side events only (kernels, copies): a CPU op's row also
-        # carries its kernels' time; CUPTI's own buffer requests are no
-        # device work
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA")
-                and e.self_device_time_total > 0
-                and e.key != "Activity Buffer Request"]
-        device_ms = sum(r[1] for r in rows)
-        rows.sort(key=lambda r: -r[1])
-        # each port kernel over all its template instantiations
-        port = {k: {"ms": sum(ms for key, ms, _ in rows if tag in key),
-                    "calls": sum(n for key, _, n in rows if tag in key)}
-                for k, tag in PATH_KERNEL_NAMES.items()}
-        emit({"phase": "profile", "scenario": name, "wall_ms": wall_ms,
-              "device_ms": device_ms,
-              "busy_share": device_ms / wall_ms if wall_ms else None,
-              "port_kernels": {k: v for k, v in port.items() if v["calls"]},
-              "top": [{"kernel": k[:80], "ms": ms, "calls": n}
-                      for k, ms, n in rows[:top]]})
+    for label, opts, _ in PATH_OPTIONS:
+        for name, bucketed in PATHS:
+            # φ⁰ is built outside the trace (it reads the graph back)
+            args = (torch, core, ops, nets[name],
+                    core.spt_phi_sparse(nets[name], nbrs[name]), nbrs[name],
+                    bks[name], bucketed, opts)
+            for driver in DRIVERS:
+                # one untraced run first: the trace sees warm plans
+                drive_path(*args, driver)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    _, _, seconds = drive_path(*args, driver)
+                wall_ms = seconds * 1e3
+                # device-side events only (kernels, copies): a CPU op's
+                # row also carries its kernels' time; CUPTI's own buffer
+                # requests are no device work
+                rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                        for e in prof.key_averages()
+                        if str(e.device_type).endswith("CUDA")
+                        and e.self_device_time_total > 0
+                        and e.key != "Activity Buffer Request"]
+                device_ms = sum(r[1] for r in rows)
+                rows.sort(key=lambda r: -r[1])
+                # each port kernel over all its template instantiations
+                port = {k: {"ms": sum(ms for key, ms, _ in rows
+                                      if tag in key),
+                            "calls": sum(n for key, _, n in rows
+                                         if tag in key)}
+                        for k, tag in PATH_KERNEL_NAMES.items()}
+                emit({"phase": "profile", "scenario": name,
+                      "options": label, "driver": driver,
+                      "wall_ms": wall_ms, "device_ms": device_ms,
+                      "busy_share": device_ms / wall_ms if wall_ms else None,
+                      "port_kernels": {k: v for k, v in port.items()
+                                       if v["calls"]},
+                      "top": [{"kernel": k[:80], "ms": ms, "calls": n}
+                              for k, ms, n in rows[:top]]})
 
 
 # the port's sparse-path kernels as the profiler names them (each
@@ -631,25 +748,32 @@ PATH_KERNEL_NAMES = {"edge_rounds": "edge_rounds_kernel<",
                      "simplex_project": "simplex_project"}
 
 
-def path_launch_ms(torch, core, net, phi0, nbrs, bks, bucketed,
+def path_launch_ms(torch, core, net, phi0, nbrs, bks, bucketed, opts,
                    n_iters=3) -> dict:
     """Device ms a launch of each port kernel on the path's own (warm)
-    inputs: one traced run of `n_iters` iterations, every instantiation
-    of a kernel summed."""
+    inputs: one traced host-driver run of `n_iters` iterations, every
+    instantiation of a kernel summed, and each instantiation on its own
+    (`<true, ..., float, float, float>` is the longest-path recursion:
+    max over float32; the taint closure's max runs in bfloat16)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         core.run(net, phi0, n_iters=n_iters, bucketed=bucketed, nbrs=nbrs,
-                 buckets=bks if bucketed else None)
+                 buckets=bks if bucketed else None, driver="host", **opts)
         torch.cuda.synchronize()
     out = {}
     for k, tag in PATH_KERNEL_NAMES.items():
-        rows = [(e.self_device_time_total, e.count)
+        rows = [(e.key, e.self_device_time_total, e.count)
                 for e in prof.key_averages()
                 if str(e.device_type).endswith("CUDA") and tag in e.key]
-        n = sum(c for _, c in rows)
+        n = sum(c for _, _, c in rows)
         if n:
-            out[k] = {"ms": sum(t for t, _ in rows) / 1e3 / n, "launches": n}
+            out[k] = {"ms": sum(t for _, t, _ in rows) / 1e3 / n,
+                      "launches": n,
+                      "instantiations": [
+                          {"kernel": key[key.index(tag):][:90],
+                           "ms": t / 1e3 / c, "launches": c}
+                          for key, t, c in rows]}
     return out
 
 
@@ -677,11 +801,13 @@ def bisection_halvings(torch, ref, phi, delta, M, perm, n_iter=60,
     return float(total), float(work)
 
 
-def record_path_operands(torch, core, ops, net, nbrs, bks, bucketed):
+def record_path_operands(torch, core, ops, net, nbrs, bks, bucketed,
+                         opts=None):
     """The operands of every K1, K2 and K3 call of one iteration of
-    `core.run` (its initial flow solves included), copied as the wrappers
-    receive them: {"edge_rounds" | "edge_rounds_bucketed" |
-    "simplex_project": [all arguments, defaults filled in]}."""
+    `core.run` (host driver, run options `opts`; its initial flow solves
+    included), copied as the wrappers receive them: {"edge_rounds" |
+    "edge_rounds_bucketed" | "simplex_project": [all arguments, defaults
+    filled in]}."""
     rec = {"edge_rounds": [], "edge_rounds_bucketed": [],
            "simplex_project": []}
     real = {k: getattr(ops, f"{k}_cuda") for k in rec}
@@ -702,7 +828,8 @@ def record_path_operands(torch, core, ops, net, nbrs, bks, bucketed):
     try:
         core.run(net, core.spt_phi_sparse(net, nbrs), n_iters=1,
                  bucketed=bucketed, nbrs=nbrs,
-                 buckets=bks if bucketed else None)
+                 buckets=bks if bucketed else None, driver="host",
+                 **(opts or {}))
         torch.cuda.synchronize()
     finally:
         for k, fn in real.items():

@@ -271,6 +271,13 @@ def sparse_to_phi(phi_sp: PhiSparse, nbrs: Neighbors, V: int | None = None):
     return Phi(data, scatter_edges(phi_sp.result, nbrs, V))
 
 
+def as_dense_phi(phi, net: CECNetwork) -> Phi:
+    """Either φ layout in the dense one."""
+    if isinstance(phi, PhiSparse):
+        return sparse_to_phi(phi, build_neighbors(net.adj), net.V)
+    return phi
+
+
 def _sparse_only(method: str) -> None:
     if method != "sparse":
         raise ValueError(f"method={method!r}: only the sparse engine is "
@@ -419,6 +426,21 @@ def compute_flows(net: CECNetwork, phi, method: str = "sparse",
 DENSE_V_LIMIT = 200
 
 
+def uniform_phi(net: CECNetwork) -> Phi:
+    """A feasible φ that is NOT loop-free (shape plumbing only): all data
+    computed locally, results spread evenly over the out-edges, none at a
+    task's destination."""
+    V, S = net.V, net.S
+    deg = net.adj.sum(dim=1)
+    data = torch.zeros((S, V, V + 1), device=net.device)
+    data[..., -1] = 1.0
+    result = torch.where(net.adj[None],
+                         1.0 / torch.clamp_min(deg, 1)[None, :, None],
+                         0.0).expand(S, V, V).clone()
+    result[torch.arange(S, device=net.device), net.dest, :] = 0.0
+    return Phi(data, result)
+
+
 def _floyd_warshall(adj: np.ndarray, weight: np.ndarray):
     """All-pairs (dist[i, j], next_hop[i, j]) under edge weights."""
     V = adj.shape[0]
@@ -516,3 +538,35 @@ def spt_phi_sparse(net: CECNetwork, nbrs: Neighbors | None = None,
     return PhiSparse(data=torch.zeros((S, V, D), device=dev),
                      local=torch.ones((S, V, 1), device=dev),
                      result=spt_result_slots(net, nbrs, weight))
+
+
+def offload_phi(net: CECNetwork, compute_nodes,
+                weight: np.ndarray | None = None) -> Phi:
+    """A feasible loop-free φ⁰ that computes only at `compute_nodes`: each
+    other node forwards its data along the shortest path toward its
+    nearest compute node (zero-flow marginal weights), compute nodes
+    compute locally; results follow the shortest-path tree toward each
+    task's destination (dense layout, Floyd-Warshall)."""
+    adj = net.adj.cpu().numpy()
+    V, S = net.V, net.S
+    if weight is None:
+        zeros = torch.zeros((V, V), device=net.device)
+        weight = net.link_cost.d1(zeros).cpu().numpy()
+    dist, nxt = _floyd_warshall(adj, weight)
+    compute_nodes = list(compute_nodes)
+    nearest = np.asarray(compute_nodes)[
+        np.argmin(dist[:, compute_nodes], axis=1)]
+    data = np.zeros((S, V, V + 1), np.float32)
+    for i in range(V):
+        if i in compute_nodes:
+            data[:, i, -1] = 1.0
+        else:
+            h = nxt[i, nearest[i]]
+            data[:, i, h if h >= 0 else -1] = 1.0
+    result = np.zeros((S, V, V), np.float32)
+    for s, d in enumerate(net.dest.cpu().numpy().tolist()):
+        for i in range(V):
+            if i != d and nxt[i, d] >= 0:
+                result[s, i, nxt[i, d]] = 1.0
+    return Phi(torch.as_tensor(data, device=net.device),
+               torch.as_tensor(result, device=net.device))

@@ -6,20 +6,31 @@ Per iteration, for every (node, task) row, the driver
   2. solves the result and data marginal recursions (Eq. 9-13),
   3. builds the blocked sets from the taint closure (loop freedom),
   4. projects every row onto the scaled simplex (the Eq. 15 QP) with
-     the current-flow curvature times the safeguard factor σ as the
-     diagonal scaling (`scaling="adaptive"`, κ = 0),
+     the Eq. 16 diagonal scaling: the current-flow curvature times the
+     safeguard factor σ (`scaling="adaptive"`) or the T⁰-sublevel sup
+     constants (`scaling="paper"`), plus the κ·n·h·A cross terms whose
+     path lengths h come from the longest-path recursion (κ > 0), or
+     Gallager's unscaled GP rule (`variant="gp"`),
   5. measures the candidate's flows and cost and accepts it only if
-     the cost does not rise (σ grows ×4 on a rejection and decays
-     toward 1 on an acceptance).
+     the cost does not rise (adaptive SGP; σ grows ×4 on a rejection
+     and decays toward 1 on an acceptance).
 
 The recursions run through `kernels.ops.edge_rounds` (or its bucketed
 form) and the QPs through `kernels.ops.simplex_project`: the Hopper
-kernels for tensors on the card, their plain versions on the CPU.  The
-driver is the per-iteration host loop of the JAX package's `run_chunk`.
+kernels for tensors on the card, their plain versions on the CPU.
+
+Two drivers walk the same trajectory bit for bit.  `driver="host"` is
+the per-iteration loop that reads each candidate's cost back to decide.
+`driver="fused"` (the default without a callback) keeps the accept,
+σ and tol decisions on the device as branchless selects and reads the
+chunk's costs back once at its end; on the card its iteration is
+captured once into a CUDA graph and replayed.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
+import time
 from typing import Optional
 
 import numpy as np
@@ -27,10 +38,11 @@ import torch
 
 from ..kernels import ops as kernel_ops
 from .marginals import BIG, Marginals, compute_marginals
-from .network import (CECNetwork, FlowsCarry, Neighbors, PhiSparse,
+from .network import (CECNetwork, FlowsCarry, Neighbors, Phi, PhiSparse,
                       _phi_edge_views, _sparse_only, build_buckets,
-                      build_neighbors, flows_carry_and_cost,
-                      link_cost_sparse, mask_slots)
+                      build_neighbors, flows_carry_and_cost, gather_edges,
+                      link_cost_sparse, mask_slots, phi_to_sparse,
+                      scatter_edges, sparse_to_phi)
 
 SUPPORT_TOL = 1e-9   # φ below this is treated as zero support
 SNAP_TOL = 1e-12     # post-projection snap-to-zero
@@ -48,14 +60,32 @@ class SGPConsts:
     min_scale: torch.Tensor  # scalar floor on diag(M)/t
 
 
-def make_consts(net: CECNetwork, T0: torch.Tensor,
-                min_scale: float = 0.05) -> SGPConsts:
+def _curvature_sups(net: CECNetwork, T0: torch.Tensor):
     A_link = torch.where(net.adj, net.link_cost.d2_sup(T0), 0.0)
     A_comp = net.comp_cost.d2_sup(T0)
-    A_max = torch.maximum(A_link.max(), A_comp.max())
-    return SGPConsts(A_link, A_comp, A_max,
+    return A_link, A_comp, torch.maximum(A_link.max(), A_comp.max())
+
+
+def make_consts(net: CECNetwork, T0: torch.Tensor,
+                min_scale: float = 0.05) -> SGPConsts:
+    return SGPConsts(*_curvature_sups(net, T0),
                      torch.tensor(min_scale, dtype=torch.float32,
                                   device=net.device))
+
+
+def _f32(x, device) -> torch.Tensor:
+    """A float32 scalar on `device`, written by a fill (no host copy)."""
+    return torch.full((), float(np.float32(x)), dtype=torch.float32,
+                      device=device)
+
+
+def _fields(x) -> tuple:
+    """A dataclass's tensors, in field order (no copies)."""
+    return tuple(getattr(x, f.name) for f in dataclasses.fields(x))
+
+
+def _one_hot(idx: torch.Tensor, K: int, dtype) -> torch.Tensor:
+    return (torch.arange(K, device=idx.device) == idx[..., None]).to(dtype)
 
 
 def _project(phi_rows, delta, M, permitted):
@@ -65,6 +95,26 @@ def _project(phi_rows, delta, M, permitted):
         phi_rows.reshape(S * V, K), delta.reshape(S * V, K),
         M.reshape(S * V, K), permitted.reshape(S * V, K))
     return out.reshape(S, V, K)
+
+
+def gp_rows(phi_row, delta, t, permitted, beta: float):
+    """Gallager's unscaled GP row update (paper §V): non-minimal
+    coordinates move down by β(δ_j − δ_min)/(2t), clipped at 0; the
+    δ-argmin coordinate absorbs the released mass.  Fully blocked rows
+    come back all zero."""
+    d = torch.where(permitted, delta, BIG)
+    onehot = _one_hot(d.argmin(-1), d.shape[-1], phi_row.dtype)
+    dmin = d.min(-1, keepdim=True).values
+    phi0 = torch.where(permitted, phi_row, 0.0)
+    step = beta * (d - dmin) / (2.0 * torch.clamp_min(t[..., None],
+                                                      TRAFFIC_EPS))
+    v = torch.clamp_min(phi0 - step, 0.0) * (1.0 - onehot)
+    v = torch.where(permitted, v, 0.0)
+    v = v + onehot * (1.0 - v.sum(-1, keepdim=True))
+    v = torch.where(v > SNAP_TOL, v, 0.0)
+    s = v.sum(-1, keepdim=True)
+    v = torch.where(s > 0.0, v / torch.clamp_min(s, 1e-30), onehot)
+    return torch.where(permitted.any(-1, keepdim=True), v, 0.0)
 
 
 # ------------------------------------------------------------ blocked sets
@@ -87,6 +137,26 @@ def _taint_pair_sparse(sup_a, rho_a, sup_b, rho_b, nbrs: Neighbors,
         nbrs.out_nbr, nbrs.out_mask, reduce="max", max_rounds=nbrs.V,
         buckets=buckets.out if buckets is not None else None)
     return t_a > 0.5, t_b > 0.5
+
+
+def _max_path_len_sparse(sup, nbrs: Neighbors, buckets=None):
+    """h[s, i], the longest support path (in hops) from i: a max reduce
+    over 1 + h[nbr] (shift = 1) from a zero inject; rows without
+    outgoing support have h = 0."""
+    return _max_path_len_pair_sparse(sup, None, nbrs, buckets)[0]
+
+
+def _max_path_len_pair_sparse(sup_a, sup_b, nbrs: Neighbors, buckets=None):
+    """Both longest-path recursions (result + data) in ONE stacked
+    launch, bit for bit the unstacked solves (`sup_b=None`: one)."""
+    h0 = torch.zeros(sup_a.shape[:2], dtype=torch.float32,
+                     device=sup_a.device)
+    problems = [(s.to(torch.float32), h0) for s in (sup_a, sup_b)
+                if s is not None]
+    return kernel_ops.edge_rounds_stacked(
+        problems, nbrs.out_nbr, nbrs.out_mask, reduce="max", shift=1.0,
+        max_rounds=nbrs.V,
+        buckets=buckets.out if buckets is not None else None)
 
 
 def blocked_sets_sparse(net: CECNetwork, phi, mg: Marginals,
@@ -125,70 +195,168 @@ def _onehot_min(delta, perm, dtype):
     """Zero-traffic rows jump one-hot to the δ-argmin over permitted
     coordinates; fully blocked rows stay all zero."""
     d = torch.where(perm, delta, BIG)
-    oh = torch.nn.functional.one_hot(d.argmin(-1), d.shape[-1]).to(dtype)
+    oh = _one_hot(d.argmin(-1), d.shape[-1], dtype)
     return torch.where(perm.any(-1, keepdim=True), oh, 0.0)
 
 
-def _sgp_propose_impl(net: CECNetwork, phi: PhiSparse, fl: FlowsCarry,
-                      consts: SGPConsts, sigma: float = 1.0,
+def _sgp_propose_impl(net: CECNetwork, phi, fl: FlowsCarry,
+                      consts: SGPConsts, variant: str = "sgp",
+                      beta: float = 1.0,
+                      mask_data: Optional[torch.Tensor] = None,
+                      mask_result: Optional[torch.Tensor] = None,
+                      allowed_data: Optional[torch.Tensor] = None,
+                      allowed_result: Optional[torch.Tensor] = None,
+                      use_blocking: bool = True, scaling: str = "adaptive",
+                      sigma=1.0, kappa: float = 0.0,
                       nbrs: Optional[Neighbors] = None, buckets=None):
     """The projection half of one iteration: from the iterate and its
-    carried flows, the marginals, blocked sets, Eq. 16 scaling (adaptive,
-    κ = 0) and the projected candidate.  Returns (phi_new, marginals)."""
+    carried flows (`fl.F` on the slots), the marginals, permitted sets,
+    Eq. 16 scaling and the projected candidate.
+
+    mask_* [S, V] bool: the rows that update (Theorem 2 asynchrony).
+    allowed_* : extra permission masks of restricted baselines, in the
+    dense [S, V, V+1] / [S, V, V] layout, ANDed into the permitted sets.
+    use_blocking=False skips the taint protocol.  `sigma` is σ, a
+    float32 scalar on the net's device (the drivers' form) or a number.
+    A dense `Phi` comes back dense, a `PhiSparse` in slots.  Returns
+    (phi_new, marginals)."""
+    if nbrs is None:
+        raise ValueError("the sparse step needs nbrs=build_neighbors(adj)")
+    native = isinstance(phi, PhiSparse)
     mg = compute_marginals(net, phi, fl, nbrs=nbrs, slot_F=True,
                            buckets=buckets)
+    S, V = net.S, net.V
+    is_dest = _is_dest(net)
+    adj_e = nbrs.out_mask[None]
     phi_d_sp, phi_loc, phi_r_rows = _phi_edge_views(phi, nbrs)
     phi_d_rows = torch.cat([phi_d_sp, phi_loc[..., None]], dim=-1)
-    perm_d, perm_r = blocked_sets_sparse(net, phi, mg, nbrs,
-                                         buckets=buckets)
+    K = adj_e.shape[-1]
+    sup_d = (phi_d_sp > SUPPORT_TOL) & adj_e
+    sup_r = (phi_r_rows > SUPPORT_TOL) & adj_e
 
-    # current-flow curvature on the slots, times the safeguard σ; with
-    # κ = 0 the Eq. 16 cross terms vanish and this is the whole diagonal
-    sigma = float(np.float32(sigma))
-    A_link_e = (mask_slots(link_cost_sparse(net, nbrs).d2(fl.F), nbrs)
-                * sigma)[None]
-    A_comp = net.comp_cost.d2(fl.G) * sigma
-    diag_r = A_link_e
-    diag_d = torch.cat([A_link_e, A_comp[None, :, None]], dim=-1)
-    Mr = 0.5 * fl.t_result[..., None] * diag_r
-    Md = 0.5 * fl.t_data[..., None] * diag_d
-    # floor for flat (linear) costs: behaves like conservative GP
-    Mr = torch.maximum(Mr, consts.min_scale * fl.t_result[..., None])
-    Md = torch.maximum(Md, consts.min_scale * fl.t_data[..., None])
+    if use_blocking:
+        perm_d, perm_r = blocked_sets_sparse(net, phi, mg, nbrs,
+                                             buckets=buckets)
+    else:
+        perm_d = torch.cat([adj_e.expand(S, V, K),
+                            torch.ones((S, V, 1), dtype=torch.bool,
+                                       device=net.device)], dim=-1)
+        perm_r = torch.where(is_dest[..., None], False, adj_e)
+    if allowed_data is not None:
+        perm_d = perm_d & torch.cat(
+            [gather_edges(allowed_data, nbrs, fill=False),
+             allowed_data[..., -1:]], dim=-1)
+    if allowed_result is not None:
+        perm_r = perm_r & gather_edges(allowed_result, nbrs, fill=False)
 
-    new_d = _project(phi_d_rows, mg.delta_data, Md, perm_d)
-    new_r = _project(phi_r_rows, mg.delta_result, Mr, perm_r)
+    if variant == "sgp":
+        if scaling == "paper":
+            A_comp, A_max = consts.A_comp, consts.A_max
+            A_link_e = gather_edges(consts.A_link, nbrs)[None]
+        else:
+            # current-flow curvature on the slots, times the safeguard σ
+            if not torch.is_tensor(sigma):
+                sigma = _f32(sigma, net.device)
+            A_link_e = (mask_slots(link_cost_sparse(net, nbrs).d2(fl.F),
+                                   nbrs) * sigma)[None]
+            A_comp = net.comp_cost.d2(fl.G) * sigma
+            A_max = None
+        if isinstance(kappa, (int, float)) and float(kappa) == 0.0:
+            # κ = 0: every κ·n·h·A term is exactly 0, so Eq. 16 is the
+            # raw curvature (bitwise A + 0·x == A) and the longest-path
+            # recursions are skipped
+            diag_r = A_link_e
+            diag_d = torch.cat([A_link_e, A_comp[None, :, None]], dim=-1)
+        else:
+            if A_max is None:
+                A_max = torch.maximum(A_link_e.max(), A_comp.max())
+            h_r, h_d = _max_path_len_pair_sparse(sup_r, sup_d, nbrs,
+                                                 buckets=buckets)
+            hj_r = h_r[:, nbrs.out_nbr]
+            hj_d = h_d[:, nbrs.out_nbr]
+            n_r = perm_r.sum(-1).to(phi_r_rows.dtype)
+            n_d = perm_d.sum(-1).to(phi_d_rows.dtype)
+            kap = float(kappa)
+            diag_r = A_link_e + kap * n_r[..., None] * hj_r * A_max
+            diag_d_nbr = A_link_e + kap * n_d[..., None] * hj_d * A_max
+            a2 = (net.a ** 2)[:, None]
+            diag_d_loc = A_comp[None] + kap * n_d * a2 * (1.0 + h_r) * A_max
+            diag_d = torch.cat([diag_d_nbr, diag_d_loc[..., None]], dim=-1)
+        Mr = 0.5 * fl.t_result[..., None] * diag_r
+        Md = 0.5 * fl.t_data[..., None] * diag_d
+        # floor for flat (linear) costs: behaves like conservative GP
+        Mr = torch.maximum(Mr, consts.min_scale * fl.t_result[..., None])
+        Md = torch.maximum(Md, consts.min_scale * fl.t_data[..., None])
+        new_d = _project(phi_d_rows, mg.delta_data, Md, perm_d)
+        new_r = _project(phi_r_rows, mg.delta_result, Mr, perm_r)
+    elif variant == "gp":
+        new_d = gp_rows(phi_d_rows, mg.delta_data, fl.t_data, perm_d, beta)
+        new_r = gp_rows(phi_r_rows, mg.delta_result, fl.t_result, perm_r,
+                        beta)
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
 
-    jump_d = _onehot_min(mg.delta_data, perm_d, phi.data.dtype)
-    jump_r = _onehot_min(mg.delta_result, perm_r, phi.result.dtype)
+    jump_d = _onehot_min(mg.delta_data, perm_d, phi_d_rows.dtype)
+    jump_r = _onehot_min(mg.delta_result, perm_r, phi_r_rows.dtype)
     new_d = torch.where((fl.t_data > TRAFFIC_EPS)[..., None], new_d, jump_d)
     new_r = torch.where((fl.t_result > TRAFFIC_EPS)[..., None], new_r, jump_r)
-    new_r = torch.where(_is_dest(net)[..., None], 0.0, new_r)
-    return PhiSparse(new_d[..., :-1], new_d[..., -1:], new_r), mg
+    new_r = torch.where(is_dest[..., None], 0.0, new_r)
+
+    if native:
+        old_d, old_r = phi_d_rows, phi_r_rows
+    else:
+        # a dense iterate comes back dense
+        new_d = torch.cat([scatter_edges(new_d[..., :-1], nbrs, V),
+                           new_d[..., -1:]], dim=-1)
+        new_r = scatter_edges(new_r, nbrs, V)
+        old_d, old_r = phi.data, phi.result
+    if mask_data is not None:
+        new_d = torch.where(mask_data[..., None], new_d, old_d)
+    if mask_result is not None:
+        new_r = torch.where(mask_result[..., None], new_r, old_r)
+    new_phi = (PhiSparse(new_d[..., :-1], new_d[..., -1:], new_r) if native
+               else Phi(new_d, new_r))
+    return new_phi, mg
 
 
-def _sgp_step_flows_impl(net: CECNetwork, phi: PhiSparse, fl: FlowsCarry,
-                         consts: SGPConsts, sigma: float = 1.0,
-                         nbrs: Optional[Neighbors] = None, buckets=None):
+def _sgp_step_flows_impl(net: CECNetwork, phi, fl: FlowsCarry,
+                         consts: SGPConsts, variant: str = "sgp",
+                         beta: float = 1.0, mask_data=None,
+                         mask_result=None, allowed_data=None,
+                         allowed_result=None, use_blocking: bool = True,
+                         scaling: str = "adaptive", sigma=1.0,
+                         kappa: float = 0.0,
+                         nbrs: Optional[Neighbors] = None, buckets=None,
+                         with_aux: bool = False):
     """One driver iteration: propose from the carried flows, then
-    measure the candidate.  Returns (phi_new, carry_new, cost_new)."""
-    phi_new, _ = _sgp_propose_impl(net, phi, fl, consts, sigma=sigma,
-                                   nbrs=nbrs, buckets=buckets)
+    measure the candidate.  Both drivers run exactly this.  Returns
+    (phi_new, carry_new, cost_new[, marginals of `phi` if with_aux])."""
+    phi_new, mg = _sgp_propose_impl(
+        net, phi, fl, consts, variant=variant, beta=beta,
+        mask_data=mask_data, mask_result=mask_result,
+        allowed_data=allowed_data, allowed_result=allowed_result,
+        use_blocking=use_blocking, scaling=scaling, sigma=sigma,
+        kappa=kappa, nbrs=nbrs, buckets=buckets)
     carry_new, cost_new = flows_carry_and_cost(net, phi_new, nbrs=nbrs,
                                                buckets=buckets)
+    if with_aux:
+        return phi_new, carry_new, cost_new, mg
     return phi_new, carry_new, cost_new
 
 
 # ------------------------------------------------------------------ driver
-def accept_step(new_cost: float, prev_cost: float, sigma: float):
+def accept_step(new_cost: float, prev_cost: float, sigma: float,
+                scaling: str = "adaptive", variant: str = "sgp"):
     """Accept/reject rule and σ safeguard, in float32 like the reference.
 
-    A non-finite or uphill cost is rejected and σ quadrupled (stopping
-    past 1e12); an accepted step decays σ toward 1.  Returns (accepted,
-    sigma, stopped)."""
+    A non-finite cost is never accepted; under adaptive SGP an uphill
+    cost is rejected too.  A rejection quadruples σ (stopping past
+    1e12), an acceptance decays it toward 1.  Returns (accepted, sigma,
+    stopped)."""
     new32, prev32 = np.float32(new_cost), np.float32(prev_cost)
     accepted = bool(np.isfinite(new32)) and not (
-        new32 > prev32 * np.float32(1.0 + 1e-12))
+        scaling == "adaptive" and variant == "sgp"
+        and new32 > prev32 * np.float32(1.0 + 1e-12))
     stopped = False
     sigma32 = np.float32(sigma)
     if not accepted:
@@ -213,7 +381,11 @@ def _tol_converged(costs: list, tol: float) -> bool:
 @dataclasses.dataclass
 class RunState:
     """Resumable host-side state of the driver: `run_chunk` continues
-    exactly where the previous chunk stopped."""
+    exactly where the previous chunk stopped.  `it` is the global
+    iteration count (it sets the paper-scaling refresh cadence across
+    chunks); `rng` is the torch.Generator, on the network's device, that
+    draws the Theorem-2 row masks; `graph_stats` is what the fused
+    driver's last chunk measured of its CUDA graph (None on the CPU)."""
     phi: PhiSparse
     consts: SGPConsts
     nbrs: Neighbors
@@ -222,46 +394,173 @@ class RunState:
     sigma: float = 1.0
     n_rejected: int = 0
     it: int = 0                     # iterations executed so far
+    rng: Optional[torch.Generator] = None
     stopped: bool = False           # σ blow-up / tol early exit
     flows: Optional[FlowsCarry] = None   # flows of `phi`
     buckets: object = None          # NeighborBuckets (bucketed mode)
+    graph_stats: Optional[dict] = None
 
 
-def init_run_state(net: CECNetwork, phi0: PhiSparse, min_scale: float = 0.05,
+def init_run_state(net: CECNetwork, phi0, min_scale: float = 0.05,
                    method: str = "sparse",
+                   rng: Optional[torch.Generator] = None,
                    nbrs: Optional[Neighbors] = None, bucketed: bool = False,
                    buckets=None) -> RunState:
     """Build (or accept) the neighbour lists and, with bucketed=True, the
-    degree buckets; evaluate φ⁰'s flows and cost T⁰ (one solve, both
-    carried) and the Eq. 16 constants."""
+    degree buckets; convert a dense φ⁰ to slots; evaluate φ⁰'s flows and
+    cost T⁰ (one solve, both carried) and the Eq. 16 constants."""
     _sparse_only(method)
-    if not isinstance(phi0, PhiSparse):
-        raise TypeError("the driver iterates an edge-slot PhiSparse "
-                        "(see spt_phi_sparse / phi_to_sparse)")
+    if rng is not None and rng.device.type != net.device.type:
+        raise ValueError(f"the driver's generator lies on {rng.device}, "
+                         f"the network on {net.device}")
     nbrs = build_neighbors(net.adj) if nbrs is None else nbrs
     if bucketed and buckets is None:
         buckets = build_buckets(net.adj)
+    if not isinstance(phi0, PhiSparse):
+        phi0 = phi_to_sparse(phi0, nbrs)   # boundary: iterate in slots
     fl0, T0 = flows_carry_and_cost(net, phi0, nbrs=nbrs, buckets=buckets)
     return RunState(phi=phi0, consts=make_consts(net, T0, min_scale),
                     nbrs=nbrs, costs=[float(T0)], min_scale=min_scale,
-                    flows=fl0, buckets=buckets)
+                    rng=rng, flows=fl0, buckets=buckets)
+
+
+def _async_masks(gen: torch.Generator, net: CECNetwork, async_frac: float):
+    """The Theorem-2 row masks of one iteration: each (task, node) row
+    updates with probability 1 − async_frac."""
+    keep = 1.0 - async_frac
+    return tuple(torch.rand((net.S, net.V), generator=gen,
+                            device=net.device) < keep for _ in range(2))
+
+
+def _refreshed_consts(net: CECNetwork, consts: SGPConsts, T: torch.Tensor,
+                      stopped: Optional[torch.Tensor] = None) -> SGPConsts:
+    """The paper-scaling refresh: the Eq. 16 sups at the cost T (a float32
+    scalar on the device); a `stopped` carry keeps the old ones."""
+    fresh = _curvature_sups(net, T)
+    if stopped is not None:
+        old = (consts.A_link, consts.A_comp, consts.A_max)
+        fresh = [torch.where(stopped, o, n) for o, n in zip(old, fresh)]
+    return SGPConsts(*fresh, consts.min_scale)
+
+
+def _accept_update_impl(phi_new, fl_new, cost_new, phi, fl, sigma, prev,
+                        n_costs, n_rej, stopped, tol, adaptive: bool):
+    """`accept_step` and `_tol_converged` as branchless selects on the
+    device: one iteration's carry update for the fused driver.  The φ and
+    flows selects write into `phi` and `fl`.
+
+    Every operation is one correctly rounded float32 elementwise op, as
+    in `accept_step`, with its constants as float32 scalars; `stopped`
+    freezes the whole carry, which is the host loop's `break`.  Returns
+    the updated scalars of the carry (sigma, prev, n_costs, n_rej,
+    stopped) and (take, live): whether this iteration accepted its
+    candidate / was executed at all."""
+    dev = cost_new.device
+    live = ~stopped
+    acc = torch.isfinite(cost_new)
+    if adaptive:
+        acc = acc & ~(cost_new > prev * _f32(1.0 + 1e-12, dev))
+    take = live & acc
+    for new, old in zip(_fields(phi_new) + _fields(fl_new),
+                        _fields(phi) + _fields(fl)):
+        torch.where(take, new, old, out=old)
+    sigma_next = torch.where(
+        acc, torch.maximum(sigma * _f32(SIGMA_DECAY, dev), _f32(1.0, dev)),
+        sigma * _f32(4.0, dev))
+    sigma = torch.where(live, sigma_next, sigma)
+    stop_sigma = live & ~acc & (sigma > _f32(1e12, dev))
+    n_costs = n_costs + take.to(torch.int32)
+    tol_hit = (tol > _f32(0.0, dev)) & (
+        torch.abs(prev - cost_new)
+        <= tol * torch.maximum(cost_new, _f32(1e-12, dev)))
+    stop_tol = take & (n_costs > 4) & tol_hit
+    prev = torch.where(take, cost_new, prev)
+    n_rej = n_rej + (live & ~acc).to(torch.int32)
+    stopped = stopped | stop_sigma | stop_tol
+    return sigma, prev, n_costs, n_rej, stopped, take, live
+
+
+def _entry_flows(net: CECNetwork, state: RunState) -> FlowsCarry:
+    """The chunk-entry flows: the state's carry of its iterate, solved
+    again only if a caller dropped it (after editing `state.phi`)."""
+    if state.flows is not None:
+        return state.flows
+    fl, _ = flows_carry_and_cost(net, state.phi, nbrs=state.nbrs,
+                                 buckets=state.buckets)
+    return fl
 
 
 def run_chunk(net: CECNetwork, state: RunState, n_iters: int,
-              tol: float = 0.0) -> RunState:
-    """Advance the host driver `n_iters` iterations, updating `state` in
-    place.  One host sync an iteration (the candidate's cost)."""
+              variant: str = "sgp", beta: float = 1.0,
+              allowed_data=None, allowed_result=None,
+              async_frac: float = 0.0, tol: float = 0.0, callback=None,
+              use_blocking: bool = True, refresh_every: int = 20,
+              scaling: str = "adaptive", kappa: float = 0.0,
+              driver: Optional[str] = None) -> RunState:
+    """Advance the driver `n_iters` iterations, updating `state` in place
+    (and returning it).  A stopped state (tol exit, σ blow-up) stays
+    stopped: further chunks are no-ops.
+
+    driver: "host" syncs once an iteration (the candidate's cost) and
+    decides on the host; "fused" decides on the device and reads the
+    chunk's costs back once (`FusedStream`); None picks "fused" unless a
+    `callback(it, phi, aux, accepted)` needs the host loop.  Both walk
+    the same costs, σ, generator draws and φ bit for bit.  The tol exit
+    fires only after an accepted step."""
+    if driver is None:
+        driver = "host" if callback is not None else "fused"
+    if driver not in ("host", "fused"):
+        raise ValueError(f"unknown driver {driver!r}")
+    if variant not in ("sgp", "gp"):
+        raise ValueError(f"unknown variant {variant!r}")
+    if scaling not in ("adaptive", "paper"):
+        raise ValueError(f"unknown scaling {scaling!r}")
+    if async_frac > 0.0 and state.rng is None:
+        raise ValueError("async_frac > 0 needs a driver generator: pass "
+                         "rng=torch.Generator(device) to init_run_state "
+                         "or run")
+    if driver == "fused" and callback is not None:
+        raise ValueError("driver='fused' runs the whole chunk on the "
+                         "device; per-iteration callbacks need "
+                         "driver='host'")
     if state.stopped or n_iters <= 0:
         return state
-    phi, fl, costs = state.phi, state.flows, state.costs
+    if scaling == "paper":
+        kappa = 1.0   # Eq. 16 verbatim
+    fl = _entry_flows(net, state)
+    opts = dict(variant=variant, beta=beta, allowed_data=allowed_data,
+                allowed_result=allowed_result, use_blocking=use_blocking,
+                scaling=scaling, kappa=kappa)
+    if driver == "fused":
+        stream = FusedStream(net, state, fl, async_frac=async_frac, tol=tol,
+                             refresh_every=refresh_every, **opts)
+        stream.advance(n_iters)
+        stream.finish()
+        return state
+    dev = net.device
+    phi, consts, costs = state.phi, state.consts, state.costs
     sigma, n_rejected, done = state.sigma, state.n_rejected, state.it
     for it in range(state.it, state.it + n_iters):
         done = it + 1
-        phi_new, fl_new, cost_new = _sgp_step_flows_impl(
-            net, phi, fl, state.consts, sigma=sigma, nbrs=state.nbrs,
-            buckets=state.buckets)
-        new_cost = float(cost_new)
-        accepted, sigma, stop = accept_step(new_cost, costs[-1], sigma)
+        if scaling == "paper" and refresh_every and it > 0 \
+                and it % refresh_every == 0:
+            consts = _refreshed_consts(net, consts, _f32(costs[-1], dev))
+        mask_d = mask_r = None
+        if async_frac > 0.0:
+            mask_d, mask_r = _async_masks(state.rng, net, async_frac)
+        out = _sgp_step_flows_impl(
+            net, phi, fl, consts, mask_data=mask_d, mask_result=mask_r,
+            sigma=_f32(sigma, dev), nbrs=state.nbrs, buckets=state.buckets,
+            with_aux=callback is not None, **opts)
+        phi_new, fl_new, cost_new = out[:3]
+        new_cost = float(cost_new)   # the host driver's one sync
+        accepted, sigma, stop = accept_step(new_cost, costs[-1], sigma,
+                                            scaling, variant)
+        if callback is not None:
+            # the iterate the step started FROM: its cost is the last
+            # accepted one, its flows the driver's carry
+            aux = {"cost": _f32(costs[-1], dev), "flows": fl,
+                   "marginals": out[3]}
         if not accepted:
             n_rejected += 1
             if stop:
@@ -270,27 +569,280 @@ def run_chunk(net: CECNetwork, state: RunState, n_iters: int,
         else:
             phi, fl = phi_new, fl_new
             costs.append(new_cost)
+        if callback is not None:
+            callback(it, phi, aux, accepted)
         if accepted and _tol_converged(costs, tol):
             state.stopped = True
             break
-    state.phi, state.flows = phi, fl
+    state.phi, state.consts, state.flows = phi, consts, fl
     state.sigma, state.n_rejected, state.it = sigma, n_rejected, done
     return state
 
 
-def run(net: CECNetwork, phi0: PhiSparse, n_iters: int = 200,
-        min_scale: float = 0.05, method: str = "sparse", tol: float = 0.0,
+def _fold_fused_histories(state: RunState, sigma, n_rej, stopped,
+                          hist: torch.Tensor):
+    """The fused chunk's single device-to-host read and its bookkeeping:
+    `hist` [n, 3] holds each dispatched iteration's (candidate cost,
+    take, live).  Executed-and-accepted costs join `state.costs`, `it`
+    advances by the executed iterations.  Returns the number executed."""
+    n = hist.shape[0]
+    packed = torch.cat([hist.reshape(-1),
+                        torch.stack([sigma.float(), n_rej.float(),
+                                     stopped.float()])]).cpu().tolist()
+    rows = [packed[3 * i:3 * i + 3] for i in range(n)]
+    state.costs.extend(c for c, take, live in rows if live and take)
+    n_live = sum(1 for _, _, live in rows if live)
+    state.sigma = packed[-3]
+    state.n_rejected += int(packed[-2])
+    state.it += n_live
+    state.stopped = bool(packed[-1])
+    return n_live
+
+
+class FusedStream:
+    """The fused driver: the accept/reject loop with no host read inside.
+
+    The carry (φ, flows, σ, the last accepted cost, counts, `stopped`)
+    lives in device tensors that each iteration updates in place; each
+    iteration's candidate cost and take/live flags land in a device
+    history that `finish` reads back once.  A stopped carry keeps
+    dispatching frozen no-ops whose outputs are discarded.
+
+    On the card the first iteration runs eagerly on a side stream (it
+    builds the kernels and their cluster plans), the second is captured
+    into a `torch.cuda.CUDAGraph`, and that graph is replayed for every
+    iteration after the first.  The paper-scaling refresh and the
+    Theorem-2 masks are eager ops between replays, writing the buffers
+    the graph reads.  The kernels' launch counters tick once a replay
+    (`kernels.ops.add_launches`).  If the capture fails the run raises;
+    there is no second path.  `stats` records the capture."""
+
+    def __init__(self, net: CECNetwork, state: RunState, fl=None, *,
+                 variant: str = "sgp", beta: float = 1.0,
+                 allowed_data=None, allowed_result=None,
+                 async_frac: float = 0.0, tol: float = 0.0,
+                 use_blocking: bool = True, refresh_every: int = 20,
+                 scaling: str = "adaptive", kappa: float = 0.0):
+        if scaling == "paper":
+            kappa = 1.0
+        if async_frac > 0.0 and state.rng is None:
+            raise ValueError("async_frac > 0 needs a driver generator")
+        self.net, self.state = net, state
+        self._o = dict(variant=variant, beta=beta, allowed_data=allowed_data,
+                       allowed_result=allowed_result,
+                       use_blocking=use_blocking, scaling=scaling,
+                       kappa=kappa)
+        self._adaptive = scaling == "adaptive" and variant == "sgp"
+        self._refresh = refresh_every if scaling == "paper" else 0
+        self._async = async_frac
+        dev = net.device
+        fl = fl if fl is not None else _entry_flows(net, state)
+
+        def own(x):
+            return type(x)(*(t.clone() for t in _fields(x)))
+
+        # the carry's own buffers (the refresh writes the consts in place)
+        self._phi, self._fl = own(state.phi), own(fl)
+        self._consts = own(state.consts) if self._refresh else state.consts
+        self._sigma = _f32(state.sigma, dev)
+        self._prev = _f32(state.costs[-1], dev)
+        self._n_costs = torch.full((), len(state.costs), dtype=torch.int32,
+                                   device=dev)
+        self._n_rej = torch.zeros((), dtype=torch.int32, device=dev)
+        self._stopped = torch.full((), bool(state.stopped), dtype=torch.bool,
+                                   device=dev)
+        self._tol = _f32(tol, dev)
+        self._masks = None
+        if async_frac > 0.0:
+            self._masks = tuple(torch.ones((net.S, net.V), dtype=torch.bool,
+                                           device=dev) for _ in range(2))
+        self._rec = torch.zeros(3, dtype=torch.float32, device=dev)
+        self._hist: list = []
+        self._gen_states: list = []   # the generator before each draw
+        self._it = state.it
+        self._graph = None
+        self._per_replay: dict = {}
+        self._dispatched = 0
+        self._finished = False
+        self.stats = {"graph": dev.type == "cuda", "warmup_s": None,
+                      "capture_s": None, "pool_bytes": None, "replays": 0,
+                      "launches_per_replay": None}
+
+    def _iterate(self):
+        """One iteration on the carry, in place."""
+        md, mr = self._masks if self._masks is not None else (None, None)
+        st = self.state
+        phi_new, fl_new, cost_new = _sgp_step_flows_impl(
+            self.net, self._phi, self._fl, self._consts, mask_data=md,
+            mask_result=mr, sigma=self._sigma, nbrs=st.nbrs,
+            buckets=st.buckets, **self._o)
+        *scalars, take, live = _accept_update_impl(
+            phi_new, fl_new, cost_new, self._phi, self._fl, self._sigma,
+            self._prev, self._n_costs, self._n_rej, self._stopped,
+            self._tol, self._adaptive)
+        for d, s in zip((self._sigma, self._prev, self._n_costs,
+                         self._n_rej, self._stopped), scalars):
+            d.copy_(s)
+        self._rec.copy_(torch.stack([cost_new.float(), take.float(),
+                                     live.float()]))
+
+    def _dispatch(self):
+        if self.net.device.type != "cuda":
+            self._iterate()
+        elif self._dispatched == 0:
+            t0 = time.perf_counter()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._iterate()
+            torch.cuda.current_stream().wait_stream(side)
+            self.stats["warmup_s"] = time.perf_counter() - t0
+        else:
+            if self._graph is None:
+                self._capture()
+            self._graph.replay()
+            kernel_ops.add_launches(self._per_replay)
+            self.stats["replays"] += 1
+        self._dispatched += 1
+
+    def _capture(self):
+        t0 = time.perf_counter()
+        reserved = torch.cuda.memory_reserved()
+        before = kernel_ops.launches()
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            graph.capture_begin()
+            try:
+                self._iterate()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+        after = kernel_ops.launches()
+        # capturing launches nothing: the counts ticked are one replay's
+        self._per_replay = {k: after[k] - before[k] for k in after
+                            if after[k] != before[k]}
+        kernel_ops.add_launches(self._per_replay, -1)
+        self._graph = graph
+        self.stats.update(capture_s=time.perf_counter() - t0,
+                          pool_bytes=torch.cuda.memory_reserved() - reserved,
+                          launches_per_replay=dict(self._per_replay))
+
+    def advance(self, n_iters: int) -> "FusedStream":
+        """Dispatch `n_iters` iterations; the host never waits on the
+        device."""
+        if self._finished:
+            raise RuntimeError("stream already finished")
+        if n_iters <= 0:
+            return self
+        net = self.net
+        hist = torch.empty((n_iters, 3), dtype=torch.float32,
+                           device=net.device)
+        for i in range(n_iters):
+            it = self._it + i
+            if self._refresh and it > 0 and it % self._refresh == 0:
+                fresh = _refreshed_consts(net, self._consts, self._prev,
+                                          self._stopped)
+                for d, s in zip(_fields(self._consts), _fields(fresh)):
+                    d.copy_(s)
+            if self._masks is not None:
+                self._gen_states.append(self.state.rng.get_state())
+                for d, s in zip(self._masks,
+                                _async_masks(self.state.rng, net,
+                                             self._async)):
+                    d.copy_(s)
+            self._dispatch()
+            hist[i].copy_(self._rec)
+        self._hist.append(hist)
+        self._it += n_iters
+        return self
+
+    def finish(self) -> RunState:
+        """The stream's single device-to-host read; leaves `state` where
+        the host driver would have left it (the generator too)."""
+        if self._finished:
+            raise RuntimeError("stream already finished")
+        self._finished = True
+        self._graph = None
+        st = self.state
+        hist = (torch.cat(self._hist) if self._hist else
+                torch.empty((0, 3), device=self.net.device))
+        n_live = _fold_fused_histories(st, self._sigma, self._n_rej,
+                                       self._stopped, hist)
+        if n_live < len(self._gen_states):
+            # a stopped carry's frozen iterations drew masks the host loop
+            # never drew: rewind the generator past them
+            st.rng.set_state(self._gen_states[n_live])
+        st.phi, st.flows, st.consts = self._phi, self._fl, self._consts
+        st.graph_stats = dict(self.stats) if self.stats["graph"] else None
+        return st
+
+
+def run_opt_keys(fn=None) -> frozenset:
+    """The keyword options a caller may forward to a driver as a
+    `run_opts` dict: `run_chunk`'s by default, or any driver `fn`'s,
+    less the positional inputs wrappers own."""
+    fn = run_chunk if fn is None else fn
+    return frozenset(inspect.signature(fn).parameters) - {
+        "net", "state", "phi0", "n_iters"}
+
+
+def validate_run_opts(opts: Optional[dict], supported, context: str,
+                      reserved=()) -> dict:
+    """Reject unsupported or reserved `run_opts` keys loudly; returns a
+    copy of `opts` safe to ** into the driver."""
+    opts = dict(opts or {})
+    clash = set(opts) & set(reserved)
+    if clash:
+        raise ValueError(
+            f"run_opts {sorted(clash)} are set by {context} itself — "
+            "pass them through its own arguments instead")
+    unknown = set(opts) - set(supported)
+    if unknown:
+        raise ValueError(
+            f"run_opts {sorted(unknown)} are not supported by {context}; "
+            f"supported keys: {sorted(set(supported) - set(reserved))}")
+    return opts
+
+
+def run(net: CECNetwork, phi0, n_iters: int = 200, variant: str = "sgp",
+        beta: float = 1.0, allowed_data=None, allowed_result=None,
+        min_scale: float = 0.05, method: str = "sparse",
+        rng: Optional[torch.Generator] = None, async_frac: float = 0.0,
+        tol: float = 0.0, callback=None, use_blocking: bool = True,
+        refresh_every: int = 20, scaling: str = "adaptive",
+        kappa: float = 0.0, driver: Optional[str] = None,
         bucketed: bool = False, nbrs: Optional[Neighbors] = None,
         buckets=None):
     """Algorithm 1 from φ⁰ for `n_iters` iterations (or until σ blows up
-    or the tol exit fires).  bucketed=True runs every recursion over
-    degree buckets — bitwise the padded trajectory.  `nbrs` and `buckets`
-    take tiles already built (`build_neighbors`, `build_buckets`; given
-    buckets are used as init_run_state uses them), so the run reads
-    nothing of the adjacency back to the host.  Returns
-    (phi_final, {"costs", "final_cost", "n_rejected"})."""
+    or the tol exit fires): `init_run_state` and one `run_chunk`.
+
+    The options are the reference's (`run_chunk` documents the drivers):
+    variant "sgp" | "gp" (Gallager's rule, step β); allowed_* dense
+    permission masks of restricted baselines; use_blocking=False skips
+    the taint protocol; scaling "adaptive" (current-flow curvature × σ,
+    uphill steps rejected) | "paper" (Eq. 16 verbatim, κ = 1, its sups
+    refreshed from the current cost every `refresh_every` iterations);
+    κ > 0 adds Eq. 16's cross terms; async_frac > 0 updates a random
+    share of the rows each iteration, drawn from the generator `rng` on
+    the network's device.  bucketed=True runs every recursion over
+    degree buckets, bit for bit the padded trajectory.  `nbrs` and
+    `buckets` take tiles already built.  A dense `Phi` in gives a dense
+    `Phi` back, a `PhiSparse` a `PhiSparse`.  Returns (phi_final,
+    {"costs", "final_cost", "n_rejected"})."""
+    dense_in = not isinstance(phi0, PhiSparse)
     state = init_run_state(net, phi0, min_scale=min_scale, method=method,
-                           nbrs=nbrs, bucketed=bucketed, buckets=buckets)
-    state = run_chunk(net, state, n_iters, tol=tol)
-    return state.phi, {"costs": state.costs, "final_cost": state.costs[-1],
-                       "n_rejected": state.n_rejected}
+                           rng=rng, nbrs=nbrs, bucketed=bucketed,
+                           buckets=buckets)
+    state = run_chunk(net, state, n_iters, variant=variant, beta=beta,
+                      allowed_data=allowed_data,
+                      allowed_result=allowed_result, async_frac=async_frac,
+                      tol=tol, callback=callback, use_blocking=use_blocking,
+                      refresh_every=refresh_every, scaling=scaling,
+                      kappa=kappa, driver=driver)
+    phi = state.phi
+    if dense_in:
+        phi = sparse_to_phi(phi, state.nbrs, net.V)
+    return phi, {"costs": state.costs, "final_cost": state.costs[-1],
+                 "n_rejected": state.n_rejected}

@@ -26,9 +26,14 @@ from .moe_gmm import moe_gmm_cuda
 from .simplex_project import simplex_project_cuda
 from .ssd_scan import ssd_scan_cuda
 
-KERNELS = (edge_rounds_cuda, edge_rounds_bucketed_cuda, simplex_project_cuda,
-           flash_attention_cuda, decode_attention_cuda, ssd_scan_cuda,
-           moe_gmm_cuda)
+# each wrapper counts its launches in `.launches`, by kernel name
+_BY_NAME = {"edge_rounds": edge_rounds_cuda,
+            "edge_rounds_bucketed": edge_rounds_bucketed_cuda,
+            "simplex_project": simplex_project_cuda,
+            "flash_attention": flash_attention_cuda,
+            "decode_attention": decode_attention_cuda,
+            "ssd_scan": ssd_scan_cuda, "moe_gmm": moe_gmm_cuda}
+KERNELS = tuple(_BY_NAME.values())
 
 
 def reset_launches() -> None:
@@ -37,13 +42,16 @@ def reset_launches() -> None:
 
 
 def launches() -> dict:
-    return {"edge_rounds": edge_rounds_cuda.launches,
-            "edge_rounds_bucketed": edge_rounds_bucketed_cuda.launches,
-            "simplex_project": simplex_project_cuda.launches,
-            "flash_attention": flash_attention_cuda.launches,
-            "decode_attention": decode_attention_cuda.launches,
-            "ssd_scan": ssd_scan_cuda.launches,
-            "moe_gmm": moe_gmm_cuda.launches}
+    return {name: k.launches for name, k in _BY_NAME.items()}
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add `times` × counts[name] to the counters.  A wrapper ticks when
+    it is called, so while a CUDA graph is captured it ticks for launches
+    that happen only at replay: a driver that replays a graph adds the
+    captured counts once a replay and takes them back off the capture."""
+    for name, n in counts.items():
+        _BY_NAME[name].launches += times * n
 
 
 def _pick(impl: Optional[str], t: torch.Tensor) -> str:

@@ -22,7 +22,10 @@ Run as a script, this file writes the stored outputs:
 the small rows, then (unless --rows-only) the golden trajectories that
 `chip_smoke.py` holds the card's runs against (`reference_costs.json`:
 the reference's host driver, 20 iterations, on `sw_1000` padded and
-`ba_10000` bucketed; a few minutes on a CPU).
+`ba_10000` bucketed; a few minutes on a CPU).  With `--options-golden
+KEY ...` it writes only the named option goldens (OPTION_GOLDENS: the
+same runs under `scaling="paper", refresh_every=5`) into that file,
+keeping its other keys.
 """
 import json
 import os
@@ -216,7 +219,38 @@ def write_golden(path=GOLDEN, n_iters=20):
         f.write("\n")
 
 
+# option goldens: key -> (scenario, bucketed, run options)
+PAPER_OPTS = {"scaling": "paper", "refresh_every": 5}
+OPTION_GOLDENS = {"sw_1000_paper": ("sw_1000", False, PAPER_OPTS),
+                  "ba_10000_paper": ("ba_10000", True, PAPER_OPTS)}
+
+
+def write_option_golden(keys, path=GOLDEN, n_iters=20):
+    """The reference's host-driver trajectories under the options of
+    OPTION_GOLDENS[key], added to `path` beside its other keys."""
+    with open(path) as f:
+        out = json.load(f)
+    for key in keys:
+        name, bucketed, opts = OPTION_GOLDENS[key]
+        net = jcore.make_scenario(jcore.TABLE_II[name])
+        phi0 = jcore.spt_phi_sparse(net)
+        _, hist = jcore.run(net, phi0, n_iters=n_iters, method="sparse",
+                            driver="host", bucketed=bucketed, **opts)
+        out[key] = {"scenario": name, "bucketed": bucketed,
+                    "n_iters": n_iters, "options": opts,
+                    "costs": [float(c) for c in hist["costs"]],
+                    "n_rejected": int(hist["n_rejected"])}
+        print(key, out[key], flush=True)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+
+
 if __name__ == "__main__":
-    write_rows()
-    if "--rows-only" not in sys.argv[1:]:
-        write_golden()
+    args = sys.argv[1:]
+    if "--options-golden" in args:
+        write_option_golden(args[args.index("--options-golden") + 1:])
+    else:
+        write_rows()
+        if "--rows-only" not in args:
+            write_golden()

@@ -38,7 +38,8 @@ in, in the order source, variants, variants reversed, source:
 * K6: Mamba2-130M's prefill scan (x [1, L, 24, 64], B/C [1, L, 128])
   at the 12 prompt lengths of its serve, in bf16 and float32, and the
   serve's sum over them (24 layers);
-* main_path: `core.run` for 20 iterations on sw_1000 and ba_10000, ms
+* main_path: `core.run` (host driver) for 20 iterations on sw_1000 and
+  ba_10000, ms
   an iteration untraced (the median of three runs after a warm-up), with
   the sources' libraries, with each variant's alone, and with every
   variant's at once, in that order and reversed, PATH_ROUNDS times over
@@ -492,7 +493,8 @@ def path_ab(torch, cs, build, libs):
                 t0 = time.perf_counter()
                 _, hist = core.run(net, phi0, n_iters=cs.N_ITERS,
                                    bucketed=bucketed, nbrs=nb,
-                                   buckets=bk if bucketed else None)
+                                   buckets=bk if bucketed else None,
+                                   driver="host")
                 torch.cuda.synchronize()
                 n_exec = len(hist["costs"]) - 1 + hist["n_rejected"]
                 if rep:                      # the first run warms up

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from .core.costs import Cost
-from .core.network import CECNetwork, PhiSparse, resolve_device
+from .core.network import CECNetwork, Phi, PhiSparse, resolve_device
 
 
 def _f32(x, dev):
@@ -44,6 +44,13 @@ def network_to_numpy(net: CECNetwork) -> dict:
     out["link_family"] = net.link_cost.family
     out["comp_family"] = net.comp_cost.family
     return out
+
+
+def phi_from_numpy(data, result, device=None) -> Phi:
+    """A dense iterate: data [S, V, V+1] (last column local), result
+    [S, V, V]."""
+    dev = resolve_device(device)
+    return Phi(_f32(data, dev), _f32(result, dev))
 
 
 def phi_sparse_from_numpy(data, local, result, device=None) -> PhiSparse:

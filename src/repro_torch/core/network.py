@@ -1,4 +1,4 @@
-"""The CEC flow model (paper §II) on the sparse edge-slot engine.
+"""The CEC flow model (paper §II): the dense, broadcast and sparse engines.
 
 Layout (V nodes, S tasks), as in the JAX package's `core/network.py`:
 
@@ -9,20 +9,29 @@ Layout (V nodes, S tasks), as in the JAX package's `core/network.py`:
   w          [S, V]   f32    computation weight
   task_type  [S]      int64
 
-The iterate φ lives in the edge-slot layout `PhiSparse`, aligned to the
-out-neighbour lists of `Neighbors`: `data[s, i, e]` is the fraction of
-data traffic i forwards along i -> out_nbr[i, e], `local[s, i, 0]` the
-fraction it computes itself, `result[s, i, e]` the result fraction.
-Slots with `out_mask[i, e]` False are padding: every consumer masks them.
+φ comes in two layouts.  The dense `Phi` holds data [S, V, V+1] (last
+column local) and result [S, V, V].  The edge-slot `PhiSparse` is
+aligned to the out-neighbour lists of `Neighbors`: `data[s, i, e]` is
+the fraction of data traffic i forwards along i -> out_nbr[i, e],
+`local[s, i, 0]` the fraction it computes itself, `result[s, i, e]` the
+result fraction.  Slots with `out_mask[i, e]` False are padding: every
+consumer masks them.
 
 The traffic recursions t = r + Φᵀ t (Eq. 1-2) and the marginal
-recursions ρ = b + Φ ρ (Eq. 11-12) are fixed points solved by
-`kernels.ops.edge_rounds`, over the padded [V, Dmax] tiles or, with
-`buckets=`, over degree-bucketed [Vb, Db] tiles (`build_buckets`) —
-bitwise the same result at ΣVb·Db lanes a round instead of V·Dmax.
-The dense layout `Phi` and its LU flow solve (`compute_flows(...,
-"dense")`, `spt_phi`) are the small-V oracle the scenario sampler uses
-up to DENSE_V_LIMIT nodes, as the reference does.
+recursions ρ = b + Φ ρ (Eq. 11-12) are solved by one of three engines
+(`method=`), as in the reference:
+
+  "dense"      one batched LU solve of the [S, V, V] systems
+               (`torch.linalg.solve_ex`, no error check: no host read);
+  "broadcast"  the paper's hop-by-hop rounds x <- b + contract(Φ, x) on
+               dense [S, V, V] arrays, to the fixed point (early exit;
+               all V rounds while a CUDA graph is captured, which equals
+               it bit for bit), differentiable through the transposed
+               recursion (`_SolveFPBroadcast`);
+  "sparse"     `kernels.ops.edge_rounds` over the padded [V, Dmax] tiles
+               or, with `buckets=`, `edge_rounds_bucketed` over degree-
+               bucketed [Vb, Db] tiles (`build_buckets`), bitwise the
+               same result at ΣVb·Db lanes a round instead of V·Dmax.
 
 Every tensor lives on one device; entry points that create tensors take
 `device=`, and None means the card ("cuda").
@@ -278,11 +287,74 @@ def as_dense_phi(phi, net: CECNetwork) -> Phi:
     return phi
 
 
-def _sparse_only(method: str) -> None:
-    if method != "sparse":
-        raise ValueError(f"method={method!r}: only the sparse engine is "
-                         "ported here (compute_flows also runs the dense "
-                         "one)")
+METHODS = ("dense", "broadcast", "sparse")
+
+
+def check_method(method: str) -> None:
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; expected one of "
+                         f"{METHODS}")
+
+
+# ------------------------------------------------------ broadcast engine
+def _fixed_point(step, x0: torch.Tensor, max_rounds: int,
+                 with_rounds: bool = False, full_rounds: bool | None = None):
+    """Iterate x <- step(x) until it stops changing (loop-free supports
+    are nilpotent) or `max_rounds` is hit (cyclic-φ guard).
+
+    The early exit reads the device each round.  With full_rounds=True
+    (the default while a CUDA graph is captured) all `max_rounds` run:
+    a fixed point reproduces itself bit for bit, so the result is the
+    same.  with_rounds=True also returns the rounds the early exit
+    counts."""
+    if full_rounds is None:
+        full_rounds = x0.is_cuda and torch.cuda.is_current_stream_capturing()
+    x_prev, x, k = x0, step(x0), 1
+    while k < max_rounds:
+        if not full_rounds and not bool(torch.any(x != x_prev)):
+            break
+        x_prev, x, k = x, step(x), k + 1
+    return (x, k) if with_rounds else x
+
+
+def _fp_broadcast(phi_nbr, b, transpose: bool, full_rounds=None):
+    """x = b + contract(Φ, x) by rounds: transpose=True solves
+    x_j = b_j + Σ_i φ_ij x_i (traffic, Eq. 1-2), False solves
+    x_i = b_i + Σ_j φ_ij x_j (marginals, Eq. 11-12)."""
+    eq = "sij,si->sj" if transpose else "sij,sj->si"
+
+    def step(x):
+        return b + torch.einsum(eq, phi_nbr, x)
+
+    return _fixed_point(step, b, phi_nbr.shape[-1], full_rounds=full_rounds)
+
+
+class _SolveFPBroadcast(torch.autograd.Function):
+    """The broadcast fixed point with the reference's custom VJP: the
+    adjoint of a linear fixed point is the same recursion with the
+    contraction transposed, x̄ = g + contract(Φᵀ, x̄), and Φ's cotangent
+    is x̄'s outer product with the primal solution."""
+
+    @staticmethod
+    def forward(ctx, phi_nbr, b, transpose):
+        x = _fp_broadcast(phi_nbr, b, transpose)
+        ctx.save_for_backward(phi_nbr, x)
+        ctx.transpose = transpose
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        phi_nbr, x = ctx.saved_tensors
+        xbar = _fp_broadcast(phi_nbr, g, not ctx.transpose)
+        if ctx.transpose:
+            phi_bar = torch.einsum("si,sj->sij", x, xbar)
+        else:
+            phi_bar = torch.einsum("si,sj->sij", xbar, x)
+        return phi_bar, xbar, None
+
+
+def _solve_fp_broadcast(phi_nbr, b, transpose: bool):
+    return _SolveFPBroadcast.apply(phi_nbr, b, transpose)
 
 
 # ---------------------------------------------------------------- solves
@@ -309,8 +381,9 @@ def solve_downstream_sparse(phi_sp, b, nbrs: Neighbors,
 
 @dataclasses.dataclass(frozen=True)
 class Flows:
-    """Per-task traffic and flows; F is the dense [V, V] link flow and
-    f_data/f_result are [S, V, Dmax] edge-slot arrays."""
+    """Per-task traffic and flows; F is the dense [V, V] link flow,
+    f_data/f_result are [S, V, V] (dense, broadcast) or [S, V, Dmax]
+    edge-slot arrays (sparse)."""
     t_data: torch.Tensor
     t_result: torch.Tensor
     g: torch.Tensor
@@ -323,7 +396,8 @@ class Flows:
 @dataclasses.dataclass(frozen=True)
 class FlowsCarry:
     """What the next driver iteration consumes of an iterate's flows; F
-    is the [V, Dmax] edge-slot total link flow (padding exactly 0)."""
+    is the [V, Dmax] edge-slot total link flow (padding exactly 0) under
+    the sparse engine, the dense [V, V] one under the others."""
     t_data: torch.Tensor    # [S, V]
     t_result: torch.Tensor  # [S, V]
     F: torch.Tensor         # [V, Dmax]
@@ -337,9 +411,20 @@ def link_cost_sparse(net: CECNetwork, nbrs: Neighbors) -> Cost:
                 gather_edges(net.link_cost.params, nbrs))
 
 
-def cost_of_carry(net: CECNetwork, carry: FlowsCarry, nbrs: Neighbors):
-    link = mask_slots(link_cost_sparse(net, nbrs).value(carry.F), nbrs)
+def cost_of_carry(net: CECNetwork, carry: FlowsCarry,
+                  nbrs: Neighbors | None = None):
+    """The cost of a driver carry: summed over the slots with `nbrs` (the
+    sparse driver's F), over the dense [V, V] F without."""
+    if nbrs is None:
+        link = torch.where(net.adj, net.link_cost.value(carry.F), 0.0)
+    else:
+        link = mask_slots(link_cost_sparse(net, nbrs).value(carry.F), nbrs)
     return torch.sum(link) + torch.sum(net.comp_cost.value(carry.G))
+
+
+def cost_of_flows(net: CECNetwork, fl) -> torch.Tensor:
+    """Total cost Σ D_ij(F_ij) + Σ C_i(G_i) of a dense-F `Flows`."""
+    return cost_of_carry(net, fl)
 
 
 def _phi_edge_views(phi, nbrs: Neighbors):
@@ -363,11 +448,21 @@ def _traffic(net: CECNetwork, phi, nbrs, buckets):
     return t_data, t_result, g, f_data, f_result, G
 
 
-def flows_carry_and_cost(net: CECNetwork, phi, method: str = "sparse",
+def flows_carry(fl: "Flows") -> FlowsCarry:
+    """The driver-carry slice of a `Flows` (F dense [V, V])."""
+    return FlowsCarry(fl.t_data, fl.t_result, fl.F, fl.G)
+
+
+def flows_carry_and_cost(net: CECNetwork, phi, method: str = "dense",
                          nbrs: Neighbors | None = None,
                          buckets: NeighborBuckets | None = None):
-    """(FlowsCarry, total cost) of one iterate, all in edge-slot layout."""
-    _sparse_only(method)
+    """(FlowsCarry, total cost) of one iterate.  The sparse engine stays
+    in the edge-slot layout (F on the [V, Dmax] slots); the dense and
+    broadcast engines carry the dense [V, V] F."""
+    check_method(method)
+    if method != "sparse":
+        fl = compute_flows(net, phi, method)
+        return flows_carry(fl), cost_of_flows(net, fl)
     nbrs = nbrs if nbrs is not None else build_neighbors(net.adj)
     t_data, t_result, _, f_data, f_result, G = _traffic(
         net, phi, nbrs, buckets)
@@ -376,25 +471,63 @@ def flows_carry_and_cost(net: CECNetwork, phi, method: str = "sparse",
     return carry, cost_of_carry(net, carry, nbrs)
 
 
-def _solve_traffic_dense(phi_nbr, inject):
-    """t = inject + Φᵀ t for each task by one batched LU solve of
-    (I - Φᵀ) t = inject: phi_nbr [S, V, V], inject [S, V]."""
-    eye = torch.eye(phi_nbr.shape[-1], dtype=phi_nbr.dtype,
-                    device=phi_nbr.device)
-    A = eye[None] - phi_nbr.transpose(-1, -2)
-    return torch.linalg.solve(A, inject[..., None])[..., 0]
+def _solve_dense(A, b):
+    """x = A⁻¹ b for a batch of [S, V, V] systems by LU, with no error
+    check (it would read `info` back to the host).  On the card the LU
+    goes through cuSOLVER / cuBLAS, whose calls a CUDA graph can
+    capture (PyTorch's default picks MAGMA for batches, which cannot be
+    captured at V = 100); the choice is PyTorch's process-wide setting,
+    so it is restored after the call."""
+    def solve():
+        return torch.linalg.solve_ex(A, b[..., None],
+                                     check_errors=False)[0][..., 0]
+    if not A.is_cuda:
+        return solve()
+    backends = torch.backends.cuda
+    prev = backends.preferred_linalg_library()
+    backends.preferred_linalg_library("cusolver")
+    try:
+        return solve()
+    finally:
+        backends.preferred_linalg_library(prev)
 
 
-def _compute_flows_dense(net: CECNetwork, phi: Phi) -> Flows:
-    """The dense engine (the reference's small-V oracle): F and f_data /
-    f_result are [V, V] and [S, V, V]."""
+def _solve_traffic(phi_nbr, inject, method: str = "dense"):
+    """t = inject + Φᵀ t for each task: phi_nbr [S, V, V], inject [S, V]."""
+    if method == "dense":
+        eye = torch.eye(phi_nbr.shape[-1], dtype=phi_nbr.dtype,
+                        device=phi_nbr.device)
+        return _solve_dense(eye[None] - phi_nbr.transpose(-1, -2), inject)
+    if method == "broadcast":
+        return _solve_fp_broadcast(phi_nbr, inject, True)
+    raise ValueError(f"unknown method {method!r}")
+
+
+def compute_flows(net: CECNetwork, phi, method: str = "dense",
+                  nbrs: Neighbors | None = None,
+                  buckets: NeighborBuckets | None = None) -> Flows:
+    """Forward pass of the flow model (F dense [V, V]).  method="sparse"
+    runs the edge-slot engine on either φ layout (f_data / f_result on
+    the slots); "dense" and "broadcast" take a dense `Phi` (f_data /
+    f_result [S, V, V])."""
+    check_method(method)
+    if isinstance(phi, PhiSparse) and method != "sparse":
+        raise ValueError(f"PhiSparse requires method='sparse', got "
+                         f"{method!r}; convert with sparse_to_phi for the "
+                         "dense and broadcast engines")
+    if method == "sparse":
+        nbrs = nbrs if nbrs is not None else build_neighbors(net.adj)
+        t_data, t_result, g, f_data, f_result, G = _traffic(
+            net, phi, nbrs, buckets)
+        F = scatter_edges(torch.sum(f_data + f_result, dim=0), nbrs, net.V)
+        return Flows(t_data, t_result, g, F, G, f_data, f_result)
     adjf = net.adj.to(phi.data.dtype)
-    phi_d_nbr = phi.data[..., :-1] * adjf[None]
+    phi_d_nbr = phi.data[..., :-1] * adjf[None]     # non-edges masked
     phi_loc = phi.data[..., -1]
     phi_r = phi.result * adjf[None]
-    t_data = _solve_traffic_dense(phi_d_nbr, net.r)
+    t_data = _solve_traffic(phi_d_nbr, net.r, method)
     g = t_data * phi_loc
-    t_result = _solve_traffic_dense(phi_r, net.a[:, None] * g)
+    t_result = _solve_traffic(phi_r, net.a[:, None] * g, method)
     f_data = t_data[..., None] * phi_d_nbr
     f_result = t_result[..., None] * phi_r
     F = torch.sum(f_data + f_result, dim=0)
@@ -402,22 +535,11 @@ def _compute_flows_dense(net: CECNetwork, phi: Phi) -> Flows:
     return Flows(t_data, t_result, g, F, G, f_data, f_result)
 
 
-def compute_flows(net: CECNetwork, phi, method: str = "sparse",
-                  nbrs: Neighbors | None = None,
-                  buckets: NeighborBuckets | None = None) -> Flows:
-    """Forward pass of the flow model (F dense).  method="sparse" runs
-    the edge-slot engine on either φ layout; method="dense" takes a
-    dense `Phi` and solves the traffic recursions by LU."""
-    if method == "dense":
-        if not isinstance(phi, Phi):
-            raise ValueError("method='dense' needs a dense Phi")
-        return _compute_flows_dense(net, phi)
-    _sparse_only(method)
-    nbrs = nbrs if nbrs is not None else build_neighbors(net.adj)
-    t_data, t_result, g, f_data, f_result, G = _traffic(
-        net, phi, nbrs, buckets)
-    F = scatter_edges(torch.sum(f_data + f_result, dim=0), nbrs, net.V)
-    return Flows(t_data, t_result, g, F, G, f_data, f_result)
+def total_cost(net: CECNetwork, phi, method: str = "dense",
+               nbrs: Neighbors | None = None,
+               buckets: NeighborBuckets | None = None) -> torch.Tensor:
+    return cost_of_flows(net, compute_flows(net, phi, method, nbrs=nbrs,
+                                            buckets=buckets))
 
 
 # ------------------------------------------------------------ initial φ
@@ -570,3 +692,71 @@ def offload_phi(net: CECNetwork, compute_nodes,
                 result[s, i, nxt[i, d]] = 1.0
     return Phi(torch.as_tensor(data, device=net.device),
                torch.as_tensor(result, device=net.device))
+
+
+# ------------------------------------------------- support and repair
+def support_matrices(net: CECNetwork, phi, tol: float = 0.0):
+    """Boolean supports [S, V, V] of data and result forwarding
+    (neighbours only)."""
+    phi = as_dense_phi(phi, net)
+    sup_d = (phi.data[..., :-1] > tol) & net.adj[None]
+    sup_r = (phi.result > tol) & net.adj[None]
+    return sup_d, sup_r
+
+
+def is_loop_free(net: CECNetwork, phi, tol: float = 0.0) -> torch.Tensor:
+    """True (a bool tensor on the net's device) iff both supports are
+    DAGs for every task: ⌈log₂V⌉ boolean squarings of the reachability,
+    each a batched float32 product on the device, then the diagonal."""
+    sup_d, sup_r = support_matrices(net, phi, tol)
+
+    def has_cycle(sup):
+        V = sup.shape[-1]
+        reach = sup
+        for _ in range(max(1, int(np.ceil(np.log2(max(V, 2)))))):
+            rf = reach.to(torch.float32)
+            reach = reach | (torch.bmm(rf, rf) > 0)
+        return torch.diagonal(reach, dim1=-2, dim2=-1).any()
+
+    return ~(has_cycle(sup_d) | has_cycle(sup_r))
+
+
+def refeasibilize(net: CECNetwork, phi: Phi, rebuild_tasks=None) -> Phi:
+    """Project a dense φ back to feasibility after a topology change
+    (node failure), as the reference does: mass on removed edges is
+    zeroed and rows renormalised; data rows left with no mass compute
+    locally; a task whose result routing lost mass at a live node (or an
+    empty row that now carries locally computed result traffic) is
+    rebuilt from the new graph's shortest-path tree, as is every task
+    `rebuild_tasks` ([S] bool) names; rows that were already empty and
+    carry no result traffic stay empty."""
+    if isinstance(phi, PhiSparse):
+        raise TypeError("refeasibilize takes a dense Phi")
+    adjf = net.adj.to(phi.data.dtype)
+    data_nbr = phi.data[..., :-1] * adjf[None]
+    data = torch.cat([data_nbr, phi.data[..., -1:]], dim=-1)
+    dsum = torch.sum(data, dim=-1, keepdim=True)
+    # missing mass goes to local offload
+    local = data[..., -1] + torch.clamp_min(1.0 - dsum[..., 0], 0.0)
+    data = torch.cat([data[..., :-1], local[..., None]], dim=-1)
+    data = data / torch.clamp_min(torch.sum(data, dim=-1, keepdim=True),
+                                  1e-30)
+
+    result = phi.result * adjf[None]
+    rsum = torch.sum(result, dim=-1)                     # [S, V]
+    rsum_before = torch.sum(phi.result, dim=-1)          # incl. cut edges
+    is_dest = (torch.arange(net.V, device=net.device)[None]
+               == net.dest[:, None])
+    alive = torch.any(net.adj, dim=-1)[None] | is_dest
+    src = (net.r * data[..., -1] > 1e-12) & (net.a[:, None] > 0.0)
+    damaged = (rsum <= 1e-12) & ((rsum_before > 1e-12) | src) \
+        & ~is_dest & alive
+    broken = torch.any(damaged, dim=-1)                  # [S]
+    if rebuild_tasks is not None:
+        broken = broken | rebuild_tasks
+    spt = spt_phi(net).result
+    result = result / torch.clamp_min(rsum[..., None], 1e-30)
+    result = torch.where(rsum[..., None] > 1e-12, result, 0.0)
+    result = torch.where(broken[:, None, None], spt, result)
+    result = torch.where(is_dest[..., None], 0.0, result)
+    return Phi(data, result)

@@ -153,3 +153,39 @@ def enforce_feasibility(net: CECNetwork, margin: float = 0.75,
         net = dataclasses.replace(
             net, comp_cost=Cost("queue", _f32(cap * scale, dev)))
     return net
+
+
+# ------------------------------------------------------- failures
+def hub_node(net: CECNetwork) -> int:
+    """The highest-out-degree node: the most damaging single failure."""
+    return int(np.argmax(net.adj.cpu().numpy().sum(axis=1)))
+
+
+def churn_hub(net: CECNetwork) -> int:
+    """The busiest node that is not a task destination (failing a
+    destination drops its tasks' rates, so the cost change would
+    measure vanished load instead of routing adaptation)."""
+    dests = set(int(d) for d in net.dest.cpu().numpy())
+    for i in np.argsort(-net.adj.cpu().numpy().sum(axis=1)):
+        if int(i) not in dests:
+            return int(i)
+    return hub_node(net)        # every node is a destination (tiny nets)
+
+
+def fail_node(net: CECNetwork, node: int) -> CECNetwork:
+    """Paper Fig. 5b: node failure.  Its links are removed (the row and
+    column stay, empty), its compute is disabled, its exogenous inputs
+    stop, and the tasks destined to it are dropped (rates zeroed) since
+    their results can no longer be delivered."""
+    dev = net.device
+    adj = net.adj.cpu().numpy().copy()
+    adj[node, :] = False
+    adj[:, node] = False
+    r = net.r.cpu().numpy().copy()
+    r[:, node] = 0.0
+    r[net.dest.cpu().numpy() == node, :] = 0.0
+    comp = net.comp_cost.params.cpu().numpy().copy()
+    comp[node] = 1e-3 if net.comp_cost.family == "queue" else 1e6
+    return dataclasses.replace(
+        net, adj=torch.as_tensor(adj, device=dev), r=_f32(r, dev),
+        comp_cost=Cost(net.comp_cost.family, _f32(comp, dev)))

@@ -1,4 +1,4 @@
-"""Algorithm 1 — Scaled Gradient Projection (paper §IV), sparse engine.
+"""Algorithm 1 — Scaled Gradient Projection (paper §IV).
 
 Per iteration, for every (node, task) row, the driver
   1. reuses the iterate's carried flows (Eq. 1-2, solved when the
@@ -15,9 +15,15 @@ Per iteration, for every (node, task) row, the driver
      the cost does not rise (adaptive SGP; σ grows ×4 on a rejection
      and decays toward 1 on an acceptance).
 
-The recursions run through `kernels.ops.edge_rounds` (or its bucketed
-form) and the QPs through `kernels.ops.simplex_project`: the Hopper
-kernels for tensors on the card, their plain versions on the CPU.
+The step runs on one of the flow model's engines (`method=`, the
+reference's default "dense"): "dense" and "broadcast" iterate the dense
+`Phi` with the LU or round-by-round solves and the V-round taint and
+path-length scans on [S, V, V] arrays; "sparse" iterates the edge-slot
+`PhiSparse`, its recursions through `kernels.ops.edge_rounds` (or its
+bucketed form).  Every engine projects its rows through
+`kernels.ops.simplex_project` (the dense rows [S·V, V+1] and [S·V, V],
+the sparse ones [S·V, Dmax+1] and [S·V, Dmax]): the Hopper kernel for
+tensors on the card, its plain version on the CPU.
 
 Two drivers walk the same trajectory bit for bit.  `driver="host"` is
 the per-iteration loop that reads each candidate's cost back to decide.
@@ -37,10 +43,11 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kernel_ops
+from ..kernels.ref import simplex_project_ref
 from .marginals import BIG, Marginals, compute_marginals
 from .network import (CECNetwork, FlowsCarry, Neighbors, Phi, PhiSparse,
-                      _phi_edge_views, _sparse_only, build_buckets,
-                      build_neighbors, flows_carry_and_cost, gather_edges,
+                      _phi_edge_views, build_buckets, build_neighbors,
+                      check_method, flows_carry_and_cost, gather_edges,
                       link_cost_sparse, mask_slots, phi_to_sparse,
                       scatter_edges, sparse_to_phi)
 
@@ -88,6 +95,11 @@ def _one_hot(idx: torch.Tensor, K: int, dtype) -> torch.Tensor:
     return (torch.arange(K, device=idx.device) == idx[..., None]).to(dtype)
 
 
+# the reference's plain QP oracle (`core/sgp.py:project_rows`): the same
+# function as K3's plain version
+project_rows = simplex_project_ref
+
+
 def _project(phi_rows, delta, M, permitted):
     """The [S, V, K] batch of Eq. 15 QPs, flattened to [S·V, K] rows."""
     S, V, K = phi_rows.shape
@@ -118,6 +130,52 @@ def gp_rows(phi_row, delta, t, permitted, beta: float):
 
 
 # ------------------------------------------------------------ blocked sets
+def _taint(sup, rho):
+    """[S, V] bool: the node has an improper edge (ρ_j >= ρ_i on its
+    support) on some downstream support path: V rounds of the boolean
+    closure over [S, V, V], as the reference's scan."""
+    improper = sup & (rho[:, None, :] >= rho[:, :, None])
+    has_improper = improper.any(-1)
+    t = has_improper
+    for _ in range(sup.shape[-1]):
+        t = has_improper | (sup & t[:, None, :]).any(-1)
+    return t
+
+
+def blocked_sets(net: CECNetwork, phi: Phi, mg: Marginals):
+    """Permitted masks of the dense engine: data [S, V, V+1] (the local
+    column always permitted), result [S, V, V] (none at a task's
+    destination).  A new edge is blocked if it goes uphill in ρ or
+    toward a tainted node; support edges stay permitted."""
+    adj = net.adj[None]
+    sup_d = (phi.data[..., :-1] > SUPPORT_TOL) & adj
+    sup_r = (phi.result > SUPPORT_TOL) & adj
+    taint_d = _taint(sup_d, mg.rho_data)
+    taint_r = _taint(sup_r, mg.rho_result)
+
+    def permitted(sup, rho, taint):
+        uphill = rho[:, None, :] >= rho[:, :, None]
+        block_new = (~sup) & (uphill | taint[:, None, :])
+        return adj & ~block_new
+
+    perm_d_nbr = permitted(sup_d, mg.rho_data, taint_d)
+    perm_r = permitted(sup_r, mg.rho_result, taint_r)
+    S, V = net.S, net.V
+    perm_d = torch.cat([perm_d_nbr, torch.ones((S, V, 1), dtype=torch.bool,
+                                               device=net.device)], dim=-1)
+    perm_r = torch.where(_is_dest(net)[..., None], False, perm_r)
+    return perm_d, perm_r
+
+
+def _max_path_len(sup):
+    """h[s, i], the longest support path (in hops) from i, by V rounds of
+    h <- max_j sup_ij (1 + h_j) over [S, V, V]; terminals have h = 0."""
+    h = torch.zeros(sup.shape[:2], dtype=torch.float32, device=sup.device)
+    for _ in range(sup.shape[-1]):
+        h = torch.where(sup, 1.0 + h[:, None, :], 0.0).amax(-1)
+    return h
+
+
 def _taint_pair_sparse(sup_a, rho_a, sup_b, rho_b, nbrs: Neighbors,
                        buckets=None):
     """Both taint closures (data + result) in ONE stacked launch.
@@ -206,12 +264,14 @@ def _sgp_propose_impl(net: CECNetwork, phi, fl: FlowsCarry,
                       mask_result: Optional[torch.Tensor] = None,
                       allowed_data: Optional[torch.Tensor] = None,
                       allowed_result: Optional[torch.Tensor] = None,
-                      use_blocking: bool = True, scaling: str = "adaptive",
-                      sigma=1.0, kappa: float = 0.0,
+                      method: str = "dense", use_blocking: bool = True,
+                      scaling: str = "adaptive", sigma=1.0,
+                      kappa: float = 0.0,
                       nbrs: Optional[Neighbors] = None, buckets=None):
     """The projection half of one iteration: from the iterate and its
-    carried flows (`fl.F` on the slots), the marginals, permitted sets,
-    Eq. 16 scaling and the projected candidate.
+    carried flows (`fl.F` on the slots under the sparse engine, dense
+    under the others), the marginals, permitted sets, Eq. 16 scaling
+    and the projected candidate.
 
     mask_* [S, V] bool: the rows that update (Theorem 2 asynchrony).
     allowed_* : extra permission masks of restricted baselines, in the
@@ -220,45 +280,67 @@ def _sgp_propose_impl(net: CECNetwork, phi, fl: FlowsCarry,
     float32 scalar on the net's device (the drivers' form) or a number.
     A dense `Phi` comes back dense, a `PhiSparse` in slots.  Returns
     (phi_new, marginals)."""
-    if nbrs is None:
-        raise ValueError("the sparse step needs nbrs=build_neighbors(adj)")
+    check_method(method)
+    sparse = method == "sparse"
     native = isinstance(phi, PhiSparse)
-    mg = compute_marginals(net, phi, fl, nbrs=nbrs, slot_F=True,
+    if native and not sparse:
+        raise ValueError("PhiSparse iterates require method='sparse'")
+    if sparse and nbrs is None:
+        raise ValueError("method='sparse' needs nbrs=build_neighbors(adj)")
+    mg = compute_marginals(net, phi, fl, method, nbrs=nbrs, slot_F=sparse,
                            buckets=buckets)
     S, V = net.S, net.V
     is_dest = _is_dest(net)
-    adj_e = nbrs.out_mask[None]
-    phi_d_sp, phi_loc, phi_r_rows = _phi_edge_views(phi, nbrs)
-    phi_d_rows = torch.cat([phi_d_sp, phi_loc[..., None]], dim=-1)
+    # row layout: edge slots [S, V, Dmax(+1)] when sparse, else dense
+    if sparse:
+        adj_e = nbrs.out_mask[None]
+        phi_d_sp, phi_loc, phi_r_rows = _phi_edge_views(phi, nbrs)
+        phi_d_rows = torch.cat([phi_d_sp, phi_loc[..., None]], dim=-1)
+    else:
+        adj_e = net.adj[None]
+        phi_d_rows, phi_r_rows = phi.data, phi.result
     K = adj_e.shape[-1]
-    sup_d = (phi_d_sp > SUPPORT_TOL) & adj_e
+    sup_d = (phi_d_rows[..., :-1] > SUPPORT_TOL) & adj_e
     sup_r = (phi_r_rows > SUPPORT_TOL) & adj_e
 
     if use_blocking:
-        perm_d, perm_r = blocked_sets_sparse(net, phi, mg, nbrs,
-                                             buckets=buckets)
+        if sparse:
+            perm_d, perm_r = blocked_sets_sparse(net, phi, mg, nbrs,
+                                                 buckets=buckets)
+        else:
+            perm_d, perm_r = blocked_sets(net, phi, mg)
     else:
         perm_d = torch.cat([adj_e.expand(S, V, K),
                             torch.ones((S, V, 1), dtype=torch.bool,
                                        device=net.device)], dim=-1)
         perm_r = torch.where(is_dest[..., None], False, adj_e)
     if allowed_data is not None:
-        perm_d = perm_d & torch.cat(
-            [gather_edges(allowed_data, nbrs, fill=False),
-             allowed_data[..., -1:]], dim=-1)
+        if sparse:
+            allowed_data = torch.cat(
+                [gather_edges(allowed_data, nbrs, fill=False),
+                 allowed_data[..., -1:]], dim=-1)
+        perm_d = perm_d & allowed_data
     if allowed_result is not None:
-        perm_r = perm_r & gather_edges(allowed_result, nbrs, fill=False)
+        if sparse:
+            allowed_result = gather_edges(allowed_result, nbrs, fill=False)
+        perm_r = perm_r & allowed_result
 
     if variant == "sgp":
         if scaling == "paper":
             A_comp, A_max = consts.A_comp, consts.A_max
-            A_link_e = gather_edges(consts.A_link, nbrs)[None]
+            A_link_e = (gather_edges(consts.A_link, nbrs) if sparse
+                        else consts.A_link)[None]
         else:
-            # current-flow curvature on the slots, times the safeguard σ
+            # current-flow curvature (on the slots when sparse), times
+            # the safeguard σ
             if not torch.is_tensor(sigma):
                 sigma = _f32(sigma, net.device)
-            A_link_e = (mask_slots(link_cost_sparse(net, nbrs).d2(fl.F),
-                                   nbrs) * sigma)[None]
+            if sparse:
+                A_link_e = mask_slots(link_cost_sparse(net, nbrs).d2(fl.F),
+                                      nbrs)
+            else:
+                A_link_e = torch.where(net.adj, net.link_cost.d2(fl.F), 0.0)
+            A_link_e = (A_link_e * sigma)[None]
             A_comp = net.comp_cost.d2(fl.G) * sigma
             A_max = None
         if isinstance(kappa, (int, float)) and float(kappa) == 0.0:
@@ -270,10 +352,16 @@ def _sgp_propose_impl(net: CECNetwork, phi, fl: FlowsCarry,
         else:
             if A_max is None:
                 A_max = torch.maximum(A_link_e.max(), A_comp.max())
-            h_r, h_d = _max_path_len_pair_sparse(sup_r, sup_d, nbrs,
-                                                 buckets=buckets)
-            hj_r = h_r[:, nbrs.out_nbr]
-            hj_d = h_d[:, nbrs.out_nbr]
+            if sparse:
+                h_r, h_d = _max_path_len_pair_sparse(sup_r, sup_d, nbrs,
+                                                     buckets=buckets)
+                hj_r = h_r[:, nbrs.out_nbr]
+                hj_d = h_d[:, nbrs.out_nbr]
+            else:
+                h_r = _max_path_len(sup_r)
+                h_d = _max_path_len(sup_d)
+                hj_r = h_r[:, None, :]
+                hj_d = h_d[:, None, :]
             n_r = perm_r.sum(-1).to(phi_r_rows.dtype)
             n_d = perm_d.sum(-1).to(phi_d_rows.dtype)
             kap = float(kappa)
@@ -302,10 +390,10 @@ def _sgp_propose_impl(net: CECNetwork, phi, fl: FlowsCarry,
     new_r = torch.where((fl.t_result > TRAFFIC_EPS)[..., None], new_r, jump_r)
     new_r = torch.where(is_dest[..., None], 0.0, new_r)
 
-    if native:
+    if native or not sparse:
         old_d, old_r = phi_d_rows, phi_r_rows
     else:
-        # a dense iterate comes back dense
+        # a dense iterate on the sparse engine comes back dense
         new_d = torch.cat([scatter_edges(new_d[..., :-1], nbrs, V),
                            new_d[..., -1:]], dim=-1)
         new_r = scatter_edges(new_r, nbrs, V)
@@ -323,7 +411,8 @@ def _sgp_step_flows_impl(net: CECNetwork, phi, fl: FlowsCarry,
                          consts: SGPConsts, variant: str = "sgp",
                          beta: float = 1.0, mask_data=None,
                          mask_result=None, allowed_data=None,
-                         allowed_result=None, use_blocking: bool = True,
+                         allowed_result=None, method: str = "dense",
+                         use_blocking: bool = True,
                          scaling: str = "adaptive", sigma=1.0,
                          kappa: float = 0.0,
                          nbrs: Optional[Neighbors] = None, buckets=None,
@@ -335,10 +424,10 @@ def _sgp_step_flows_impl(net: CECNetwork, phi, fl: FlowsCarry,
         net, phi, fl, consts, variant=variant, beta=beta,
         mask_data=mask_data, mask_result=mask_result,
         allowed_data=allowed_data, allowed_result=allowed_result,
-        use_blocking=use_blocking, scaling=scaling, sigma=sigma,
-        kappa=kappa, nbrs=nbrs, buckets=buckets)
-    carry_new, cost_new = flows_carry_and_cost(net, phi_new, nbrs=nbrs,
-                                               buckets=buckets)
+        method=method, use_blocking=use_blocking, scaling=scaling,
+        sigma=sigma, kappa=kappa, nbrs=nbrs, buckets=buckets)
+    carry_new, cost_new = flows_carry_and_cost(net, phi_new, method,
+                                               nbrs=nbrs, buckets=buckets)
     if with_aux:
         return phi_new, carry_new, cost_new, mg
     return phi_new, carry_new, cost_new
@@ -381,14 +470,17 @@ def _tol_converged(costs: list, tol: float) -> bool:
 @dataclasses.dataclass
 class RunState:
     """Resumable host-side state of the driver: `run_chunk` continues
-    exactly where the previous chunk stopped.  `it` is the global
-    iteration count (it sets the paper-scaling refresh cadence across
-    chunks); `rng` is the torch.Generator, on the network's device, that
-    draws the Theorem-2 row masks; `graph_stats` is what the fused
-    driver's last chunk measured of its CUDA graph (None on the CPU)."""
-    phi: PhiSparse
+    exactly where the previous chunk stopped.  `phi` is the iterate in
+    the engine's layout (`PhiSparse` under method="sparse", else `Phi`);
+    `it` is the global iteration count (it sets the paper-scaling
+    refresh cadence across chunks); `rng` is the torch.Generator, on the
+    network's device, that draws the Theorem-2 row masks; `graph_stats`
+    is what the fused driver's last chunk measured of its CUDA graph
+    (None on the CPU)."""
+    phi: object                     # Phi | PhiSparse
     consts: SGPConsts
-    nbrs: Neighbors
+    nbrs: Optional[Neighbors]       # sparse engine only
+    method: str
     costs: list
     min_scale: float = 0.05
     sigma: float = 1.0
@@ -402,26 +494,33 @@ class RunState:
 
 
 def init_run_state(net: CECNetwork, phi0, min_scale: float = 0.05,
-                   method: str = "sparse",
+                   method: str = "dense",
                    rng: Optional[torch.Generator] = None,
                    nbrs: Optional[Neighbors] = None, bucketed: bool = False,
                    buckets=None) -> RunState:
-    """Build (or accept) the neighbour lists and, with bucketed=True, the
-    degree buckets; convert a dense φ⁰ to slots; evaluate φ⁰'s flows and
-    cost T⁰ (one solve, both carried) and the Eq. 16 constants."""
-    _sparse_only(method)
+    """Under method="sparse", build (or accept) the neighbour lists and,
+    with bucketed=True, the degree buckets, and convert a dense φ⁰ to
+    slots; the dense and broadcast engines iterate the dense `Phi`.
+    Evaluate φ⁰'s flows and cost T⁰ (one solve, both carried) and the
+    Eq. 16 constants."""
+    check_method(method)
     if rng is not None and rng.device.type != net.device.type:
         raise ValueError(f"the driver's generator lies on {rng.device}, "
                          f"the network on {net.device}")
-    nbrs = build_neighbors(net.adj) if nbrs is None else nbrs
-    if bucketed and buckets is None:
-        buckets = build_buckets(net.adj)
-    if not isinstance(phi0, PhiSparse):
-        phi0 = phi_to_sparse(phi0, nbrs)   # boundary: iterate in slots
-    fl0, T0 = flows_carry_and_cost(net, phi0, nbrs=nbrs, buckets=buckets)
+    if method == "sparse":
+        nbrs = build_neighbors(net.adj) if nbrs is None else nbrs
+        if bucketed and buckets is None:
+            buckets = build_buckets(net.adj)
+        if not isinstance(phi0, PhiSparse):
+            phi0 = phi_to_sparse(phi0, nbrs)   # boundary: iterate in slots
+    else:
+        nbrs = buckets = None
+    fl0, T0 = flows_carry_and_cost(net, phi0, method, nbrs=nbrs,
+                                   buckets=buckets)
     return RunState(phi=phi0, consts=make_consts(net, T0, min_scale),
-                    nbrs=nbrs, costs=[float(T0)], min_scale=min_scale,
-                    rng=rng, flows=fl0, buckets=buckets)
+                    nbrs=nbrs, method=method, costs=[float(T0)],
+                    min_scale=min_scale, rng=rng, flows=fl0,
+                    buckets=buckets)
 
 
 def _async_masks(gen: torch.Generator, net: CECNetwork, async_frac: float):
@@ -485,8 +584,8 @@ def _entry_flows(net: CECNetwork, state: RunState) -> FlowsCarry:
     again only if a caller dropped it (after editing `state.phi`)."""
     if state.flows is not None:
         return state.flows
-    fl, _ = flows_carry_and_cost(net, state.phi, nbrs=state.nbrs,
-                                 buckets=state.buckets)
+    fl, _ = flows_carry_and_cost(net, state.phi, state.method,
+                                 nbrs=state.nbrs, buckets=state.buckets)
     return fl
 
 
@@ -550,7 +649,8 @@ def run_chunk(net: CECNetwork, state: RunState, n_iters: int,
             mask_d, mask_r = _async_masks(state.rng, net, async_frac)
         out = _sgp_step_flows_impl(
             net, phi, fl, consts, mask_data=mask_d, mask_result=mask_r,
-            sigma=_f32(sigma, dev), nbrs=state.nbrs, buckets=state.buckets,
+            sigma=_f32(sigma, dev), method=state.method, nbrs=state.nbrs,
+            buckets=state.buckets,
             with_aux=callback is not None, **opts)
         phi_new, fl_new, cost_new = out[:3]
         new_cost = float(cost_new)   # the host driver's one sync
@@ -631,7 +731,7 @@ class FusedStream:
         self._o = dict(variant=variant, beta=beta, allowed_data=allowed_data,
                        allowed_result=allowed_result,
                        use_blocking=use_blocking, scaling=scaling,
-                       kappa=kappa)
+                       kappa=kappa, method=state.method)
         self._adaptive = scaling == "adaptive" and variant == "sgp"
         self._refresh = refresh_every if scaling == "paper" else 0
         self._async = async_frac
@@ -808,7 +908,7 @@ def validate_run_opts(opts: Optional[dict], supported, context: str,
 
 def run(net: CECNetwork, phi0, n_iters: int = 200, variant: str = "sgp",
         beta: float = 1.0, allowed_data=None, allowed_result=None,
-        min_scale: float = 0.05, method: str = "sparse",
+        min_scale: float = 0.05, method: str = "dense",
         rng: Optional[torch.Generator] = None, async_frac: float = 0.0,
         tol: float = 0.0, callback=None, use_blocking: bool = True,
         refresh_every: int = 20, scaling: str = "adaptive",
@@ -819,15 +919,17 @@ def run(net: CECNetwork, phi0, n_iters: int = 200, variant: str = "sgp",
     or the tol exit fires): `init_run_state` and one `run_chunk`.
 
     The options are the reference's (`run_chunk` documents the drivers):
-    variant "sgp" | "gp" (Gallager's rule, step β); allowed_* dense
+    method "dense" | "broadcast" | "sparse" (the flow model's engines;
+    the sparse one iterates in slots); variant "sgp" | "gp" (Gallager's
+    rule, step β); allowed_* dense
     permission masks of restricted baselines; use_blocking=False skips
     the taint protocol; scaling "adaptive" (current-flow curvature × σ,
     uphill steps rejected) | "paper" (Eq. 16 verbatim, κ = 1, its sups
     refreshed from the current cost every `refresh_every` iterations);
     κ > 0 adds Eq. 16's cross terms; async_frac > 0 updates a random
     share of the rows each iteration, drawn from the generator `rng` on
-    the network's device.  bucketed=True runs every recursion over
-    degree buckets, bit for bit the padded trajectory.  `nbrs` and
+    the network's device.  bucketed=True (sparse engine) runs every
+    recursion over degree buckets, bit for bit the padded trajectory.  `nbrs` and
     `buckets` take tiles already built.  A dense `Phi` in gives a dense
     `Phi` back, a `PhiSparse` a `PhiSparse`.  Returns (phi_final,
     {"costs", "final_cost", "n_rejected"})."""
@@ -842,7 +944,7 @@ def run(net: CECNetwork, phi0, n_iters: int = 200, variant: str = "sgp",
                       refresh_every=refresh_every, scaling=scaling,
                       kappa=kappa, driver=driver)
     phi = state.phi
-    if dense_in:
+    if method == "sparse" and dense_in:
         phi = sparse_to_phi(phi, state.nbrs, net.V)
     return phi, {"costs": state.costs, "final_cost": state.costs[-1],
                  "n_rejected": state.n_rejected}

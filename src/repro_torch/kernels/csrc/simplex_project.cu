@@ -27,8 +27,14 @@
 //   columns, in column order, into a list (so the first argmin of δ is
 //   unchanged); a row with more than 32 is solved at once by the whole
 //   warp, lane l holding its coordinates l, l+32, ... (KPL = ⌈K / 32⌉
-//   registers; rounded up to a power of two it was 8-10 % slower on
-//   ba_10000's QPs, whose hub rows take this route);
+//   registers, at most 16; rounded up to a power of two it was 8-10 %
+//   slower on ba_10000's QPs, whose hub rows take this route); a row
+//   with more permitted coordinates than 32·KPL (possible only where
+//   K > 512: the dense engine's rows are [S·V, V+1] but permit at most
+//   a node's out-degree + 1) is walked by the whole warp in pieces of
+//   32 from its column list at every halving, with (q, w) recomputed
+//   from φ, δ, M: the same sums in the same order as the register
+//   route, without the registers;
 // * the other rows are solved in sub-warp groups of G = 4, 8, 16 or 32
 //   lanes (G the next power of two >= the row's permitted count, at
 //   least 4), 32/G rows at a time, one coordinate a lane: a halving is
@@ -213,6 +219,64 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                  :: "r"(s), "l"(gmem) : "memory");
 }
 
+// `solve_row<32, KPL>` for a row of any permitted count n on the whole
+// warp: lane t's coordinates t, t+32, ... are read from the column list
+// and set up again at every halving, summed in the register route's
+// order (then the same butterfly), so the result is the one a register
+// route of ⌈n / 32⌉ registers would give.
+__device__ __noinline__ void solve_row_streamed(
+        int t, const uint16_t* __restrict__ cols, int n, int fb, long base,
+        int K, const float* __restrict__ phi,
+        const float* __restrict__ delta, const float* __restrict__ M,
+        float* __restrict__ out, int n_iter) {
+    float lo = kBig, hi = -kBig;
+    for (int p = t; p < n; p += 32) {
+        const Coord x = coord(phi, delta, M, base + cols[p]);
+        lo = minp(lo, x.lo);
+        hi = maxp(hi, x.hi);
+    }
+    group_bracket<32>(kFull, lo, hi);
+    auto sum_at = [&](float lam, bool snap) {
+        float s = 0.0f;
+        for (int p = t; p < n; p += 32) {
+            const Coord x = coord(phi, delta, M, base + cols[p]);
+            s = __fadd_rn(s, snap ? snapped(x.q, x.w, lam)
+                                  : fmaxf(__fsub_rn(x.q, __fmul_rn(lam, x.w)),
+                                          0.0f));
+        }
+        return group_sum<32>(kFull, s);
+    };
+    for (int it = 0; it < n_iter; ++it) {
+        const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+        const bool up = sum_at(mid, false) > 1.0f;
+        const float lo2 = up ? mid : lo, hi2 = up ? hi : mid;
+        const bool changed = (lo2 != lo) || (hi2 != hi);
+        lo = lo2;
+        hi = hi2;
+        if (!changed) break;
+    }
+    const float lam = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+    const float s = sum_at(lam, true);
+    if (s > 0.0f) {
+        const float denom = fmaxf(s, 1e-30f);
+        for (int p = t; p < n; p += 32) {
+            const Coord x = coord(phi, delta, M, base + cols[p]);
+            out[base + cols[p]] = __fdiv_rn(snapped(x.q, x.w, lam), denom);
+        }
+        return;
+    }
+    float dm = __int_as_float(0x7f800000);
+    int jm = 1 << 30;
+    for (int p = t; p < n; p += 32)
+        if (delta[base + cols[p]] < dm) {
+            dm = delta[base + cols[p]];
+            jm = cols[p];
+        }
+    group_argmin<32>(kFull, dm, jm);
+    if (fb < K && (dm > kBig || (dm == kBig && fb < jm))) jm = fb;
+    if (t == 0 && jm < K) out[base + jm] = 1.0f;
+}
+
 template <int KPL>
 __global__ void __launch_bounds__(kThreads, 1)
 simplex_project_kernel(const float* __restrict__ phi,
@@ -292,8 +356,12 @@ simplex_project_kernel(const float* __restrict__ phi,
         if (lane == 0) { cnt[i] = (int16_t)n; first_blocked[i] = (int16_t)fb; }
         if (KPL > 1 && n > 32) {        // a wide row: the whole warp at once
             __syncwarp();
-            solve_row<32, KPL>(kFull, lane, wide, n, fb, (row0 + i) * K, K,
-                               phi, delta, M, out, n_iter);
+            if (n <= 32 * KPL)
+                solve_row<32, KPL>(kFull, lane, wide, n, fb, (row0 + i) * K,
+                                   K, phi, delta, M, out, n_iter);
+            else
+                solve_row_streamed(lane, wide, n, fb, (row0 + i) * K, K,
+                                   phi, delta, M, out, n_iter);
         }
         __syncwarp();
     }
@@ -348,16 +416,19 @@ extern "C" {
 
 // All row arrays [R, K] row-major; permitted as one byte a coordinate.
 // `rows_per_warp` (1..32) is B, the rows of a warp's batch.  The
-// full-warp route holds ⌈K / 32⌉ (1..16) registers a lane.  Returns
+// full-warp route holds min(⌈K / 32⌉, 16) registers a lane; rows with
+// more permitted coordinates than that holds are streamed.  K up to
+// 32767 (the column lists are 16-bit), as far as a block's shared
+// memory (8 warps of `WarpSmem(B, K)`) fits.  Returns
 // cudaGetLastError() of the launch.
 int simplex_project_launch(int rows_per_warp, const void* phi,
                            const void* delta, const void* M,
                            const void* perm, void* out, int R, int K,
                            int n_iter, void* stream) {
     if (R == 0) return 0;
-    if (rows_per_warp < 1 || rows_per_warp > kMaxRows || K < 1)
+    if (rows_per_warp < 1 || rows_per_warp > kMaxRows || K < 1 || K > 32767)
         return (int)cudaErrorInvalidValue;
-    const int kpl = (K + 31) / 32;
+    const int kpl = (K + 31) / 32 < 16 ? (K + 31) / 32 : 16;
 #define SP_CALL(N)                                                        \
     case N:                                                               \
         return (int)launch<N>((const float*)phi, (const float*)delta,     \

@@ -50,7 +50,7 @@ def _both(name, n_iters=25, phi0=None, **kw):
         if "seed" in opts:
             opts["rng"] = torch.Generator().manual_seed(opts.pop("seed"))
         out[driver] = core.run(net, phi0, n_iters=n_iters, driver=driver,
-                               **opts)
+                               method="sparse", **opts)
     (ph, hh), (pf, hf) = out["host"], out["fused"]
     assert hh["costs"] == hf["costs"], name
     assert hh["n_rejected"] == hf["n_rejected"], name
@@ -96,20 +96,21 @@ def test_fused_bitwise_async_generator():
     states = {}
     for driver in ("host", "fused"):
         gen = torch.Generator().manual_seed(7)
-        st = core.init_run_state(net, phi0, rng=gen)
+        st = core.init_run_state(net, phi0, rng=gen, method="sparse")
         core.run_chunk(net, st, 15, async_frac=0.3, driver=driver)
         states[driver] = (st, gen.get_state())
     (sh, gh), (sf, gf) = states["host"], states["fused"]
     assert sh.costs == sf.costs and sh.n_rejected == sf.n_rejected
     assert _phi_equal(sh.phi, sf.phi) and torch.equal(gh, gf)
-    _, plain = core.run(net, phi0, n_iters=15)
+    _, plain = core.run(net, phi0, n_iters=15, method="sparse")
     assert sh.costs != plain["costs"]     # the masks held rows back
 
 
 def _nan_state(net, **kw):
     """Every candidate cost is NaN: each iteration is rejected, σ
     quadruples, and after 20 rejections (4^20 > 1e12) the run stops."""
-    st = core.init_run_state(net, core.spt_phi_sparse(net), **kw)
+    st = core.init_run_state(net, core.spt_phi_sparse(net), method="sparse",
+                             **kw)
     bad = st.phi.data.clone()
     bad[..., 0] = float("nan")
     st.phi = dataclasses.replace(st.phi, data=bad)
@@ -143,8 +144,9 @@ def test_chunks_resume_bitwise(driver):
     paper-scaling refresh cadence included (it reads the global it)."""
     net, phi0 = _setup("lhc")
     kw = dict(scaling="paper", refresh_every=4)
-    phi, hist = core.run(net, phi0, n_iters=11, driver="host", **kw)
-    st = core.init_run_state(net, phi0)
+    phi, hist = core.run(net, phi0, n_iters=11, driver="host",
+                         method="sparse", **kw)
+    st = core.init_run_state(net, phi0, method="sparse")
     for n in (3, 5, 3):
         core.run_chunk(net, st, n, driver=driver, **kw)
     assert st.costs == hist["costs"] and st.it == 11
@@ -154,8 +156,8 @@ def test_chunks_resume_bitwise(driver):
 
 def test_stream_advances_in_parts():
     net, phi0 = _setup("geant")
-    _, hist = core.run(net, phi0, n_iters=9, driver="host")
-    st = core.init_run_state(net, phi0)
+    _, hist = core.run(net, phi0, n_iters=9, driver="host", method="sparse")
+    st = core.init_run_state(net, phi0, method="sparse")
     stream = sgp.FusedStream(net, st)
     stream.advance(4).advance(5)
     assert stream.finish() is st
@@ -169,7 +171,7 @@ def test_dense_phi_in_dense_phi_out():
     dense0 = core.spt_phi(net)
     ph, hh = _both("lhc", n_iters=10, phi0=dense0)
     assert isinstance(ph, core.Phi)
-    sp, hs = core.run(net, sp0, n_iters=10)
+    sp, hs = core.run(net, sp0, n_iters=10, method="sparse")
     assert hh["costs"] == hs["costs"]
     dense = core.sparse_to_phi(sp, core.build_neighbors(net.adj), net.V)
     assert torch.equal(ph.data, dense.data)
@@ -184,8 +186,8 @@ def test_callback_picks_host():
         assert set(aux) == {"cost", "flows", "marginals"}
         seen.append((it, accepted, float(aux["cost"])))
 
-    _, hist = core.run(net, phi0, n_iters=8, callback=cb)
-    _, host = core.run(net, phi0, n_iters=8, driver="host")
+    _, hist = core.run(net, phi0, n_iters=8, callback=cb, method="sparse")
+    _, host = core.run(net, phi0, n_iters=8, driver="host", method="sparse")
     assert hist["costs"] == host["costs"]
     assert [s[0] for s in seen] == list(range(8))
     assert sum(not acc for _, acc, _ in seen) == hist["n_rejected"]
@@ -195,7 +197,7 @@ def test_callback_picks_host():
 
 def test_errors():
     net, phi0 = _setup("abilene")
-    st = core.init_run_state(net, phi0)
+    st = core.init_run_state(net, phi0, method="sparse")
     with pytest.raises(ValueError, match="driver"):
         core.run_chunk(net, st, 2, driver="gpu")
     with pytest.raises(ValueError, match="callback"):

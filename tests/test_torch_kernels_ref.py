@@ -771,12 +771,13 @@ def _k3_transcription(phi, delta, M, perm, B):
     """A transcription of K3 (`csrc/simplex_project.cu`): warps take
     batches of B rows; each row's permitted columns are compacted in
     column order; a row with n > 32 of them is solved by the whole warp
-    (kpl = ⌈K/32⌉ registers a lane), the others class by class on groups
-    of G = 4, 8, 16 or 32 lanes, 32/G rows a pass.  Returns (out,
-    schedule): schedule lists (warp, G, pass, group, row) of every row
-    solved."""
+    (kpl = min(⌈K/32⌉, 16) registers a lane; a row past 32·kpl is
+    streamed, the same sums in the same order as ⌈n/32⌉ registers), the
+    others class by class on groups of G = 4, 8, 16 or 32 lanes, 32/G
+    rows a pass.  Returns (out, schedule): schedule lists (warp, G,
+    pass, group, row) of every row solved."""
     R, K = phi.shape
-    kpl = -(-K // 32)
+    kpl = min(16, -(-K // 32))
     n_of = perm.sum(-1)
     sched = []
     for wp, r0 in enumerate(range(0, R, B)):
@@ -788,6 +789,7 @@ def _k3_transcription(phi, delta, M, perm, B):
             sched += [(wp, G, k // (32 // G), k % (32 // G), i)
                       for k, i in enumerate(cls)]
     out = torch.zeros(R, K)
+    kpl = max([kpl] + [-(-int(n) // 32) for n in n_of])
     for G, kp in ((4, 1), (8, 1), (16, 1), (32, 1), (32, kpl)):
         rows = [i for _, g, _, _, i in sched if g == G
                 and (kp > 1) == (n_of[i] > 32)]
@@ -878,6 +880,45 @@ def test_k3_transcription_matches_oracle(K, dest):
         assert G == (32 if n > 32 else max(4, 1 << (n - 1).bit_length()))
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
     assert (got.numpy()[~perm.numpy() & (got.numpy() != 1.0)] == 0).all()
+
+
+def test_k3_plan_takes_the_dense_width():
+    """K3 plans the dense engine's rows [S·V, V+1] up to sw_1000's K =
+    1001 (2 rows a warp, 16 registers a lane on the whole-warp route)
+    with no ValueError, refuses a width whose plan a block's shared
+    memory cannot hold, and its transcription, with rows of 1-15
+    permitted (a node's out-edges and the local column), a row of 40
+    (registers) and one of 600 (streamed) and fully blocked rows,
+    matches the plain version to 1e-6."""
+    plan = sp_mod.plan(1001)
+    assert plan["rows_per_warp"] == 2 and plan["registers"] == 16
+    assert plan["smem_bytes"] <= sp_mod.SMEM_LIMIT
+    assert sp_mod.plan(12)["rows_per_warp"] == 16
+    with pytest.raises(ValueError):
+        sp_mod.plan(12000)
+    rng = np.random.default_rng(1001)
+    R, K = 40, 1001
+    perm = np.zeros((R, K), bool)
+    for i in range(R):
+        perm[i, rng.choice(K - 1, rng.integers(0, 15), replace=False)] = True
+    perm[:, -1] = True
+    perm[7, rng.choice(K - 1, 39, replace=False)] = True
+    perm[21, rng.choice(K - 1, 600, replace=False)] = True
+    perm[::9] = False
+    phi = rng.random((R, K)).astype(np.float32) * perm
+    phi /= np.maximum(phi.sum(-1, keepdims=True), 1e-30)
+    delta = (rng.random((R, K)) * 3).astype(np.float32)
+    M = (rng.random((R, K)) * 2 + 0.25).astype(np.float32)
+    phi, delta, M, perm = (torch.from_numpy(a) for a in (phi, delta, M,
+                                                         perm))
+    n_of = perm.sum(-1)
+    assert int(n_of.max()) > 32 * plan["registers"]
+    want = ref.simplex_project_ref(phi, delta, M, perm)
+    got, sched = _k3_transcription(phi, delta, M, perm,
+                                   plan["rows_per_warp"])
+    assert sorted(i for *_, i in sched) == torch.nonzero(
+        n_of > 0)[:, 0].tolist()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
 
 
 # ------------------------------------------------------------ isolation

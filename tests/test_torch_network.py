@@ -157,15 +157,16 @@ def test_flows_and_marginals_match(name):
     jphi = jcore.PhiSparse(*(jnp.asarray(a)
                              for a in phi_sparse_to_numpy(phi)))
     jfl, jcarry, jcost, jmg = j_flows_and_marginals(jn, jphi, jnb)
-    fl = tcore.compute_flows(net, phi, nbrs=nb)
+    fl = tcore.compute_flows(net, phi, "sparse", nbrs=nb)
     for f in ("t_data", "t_result", "g", "F", "G"):
         np.testing.assert_allclose(getattr(fl, f).numpy(),
                                    np.asarray(getattr(jfl, f)), err_msg=f,
                                    **RTOL)
-    carry, cost = tcore.flows_carry_and_cost(net, phi, nbrs=nb)
+    carry, cost = tcore.flows_carry_and_cost(net, phi, "sparse", nbrs=nb)
     np.testing.assert_allclose(carry.F.numpy(), np.asarray(jcarry.F), **RTOL)
     np.testing.assert_allclose(float(cost), float(jcost), rtol=1e-5)
-    mg = tcore.compute_marginals(net, phi, carry, nbrs=nb, slot_F=True)
+    mg = tcore.compute_marginals(net, phi, carry, "sparse", nbrs=nb,
+                                 slot_F=True)
     for f in ("rho_data", "rho_result", "delta_data", "delta_result", "Dp",
               "Cp"):
         np.testing.assert_allclose(getattr(mg, f).numpy(),
@@ -182,10 +183,10 @@ def test_bucketed_flows_marginals_blocked_bitwise():
     phi = _mixed_phi(net, nb)
     out = []
     for buckets in (None, bk):
-        carry, cost = tcore.flows_carry_and_cost(net, phi, nbrs=nb,
-                                                 buckets=buckets)
-        mg = tcore.compute_marginals(net, phi, carry, nbrs=nb, slot_F=True,
-                                     buckets=buckets)
+        carry, cost = tcore.flows_carry_and_cost(net, phi, "sparse",
+                                                 nbrs=nb, buckets=buckets)
+        mg = tcore.compute_marginals(net, phi, carry, "sparse", nbrs=nb,
+                                     slot_F=True, buckets=buckets)
         perm = tcore.blocked_sets_sparse(net, phi, mg, nb, buckets=buckets)
         out.append((carry.t_data, carry.t_result, carry.F, carry.G, cost,
                     mg.rho_data, mg.rho_result, mg.delta_data, *perm))

@@ -120,7 +120,8 @@ def check_port_row(ref, spec, bucketed=False, phi_atol=1e-4):
     tphi0 = tcore.spt_phi_sparse(tnet)
     for f, got in zip(PHI_FIELDS, phi_sparse_to_numpy(tphi0)):
         np.testing.assert_array_equal(got, ref[f"phi0_{f}"], err_msg=f)
-    tphi, th = tcore.run(tnet, tphi0, n_iters=N_ITERS, bucketed=bucketed)
+    tphi, th = tcore.run(tnet, tphi0, n_iters=N_ITERS, bucketed=bucketed,
+                         method="sparse")
     assert len(th["costs"]) == len(ref["costs"])
     assert th["n_rejected"] == int(ref["n_rejected"])
     np.testing.assert_allclose(th["costs"], ref["costs"], rtol=1e-4)
@@ -157,8 +158,8 @@ def test_run_chunk_resumes_bitwise():
     """init_run_state + chunks walk exactly the uninterrupted run."""
     net = tcore.make_scenario(tcore.TABLE_II["lhc"], device="cpu")
     phi0 = tcore.spt_phi_sparse(net)
-    phi, hist = tcore.run(net, phi0, n_iters=9)
-    state = tcore.init_run_state(net, phi0)
+    phi, hist = tcore.run(net, phi0, n_iters=9, method="sparse")
+    state = tcore.init_run_state(net, phi0, method="sparse")
     for n in (4, 5):
         tcore.run_chunk(net, state, n)
     assert state.costs == hist["costs"] and state.it == 9

@@ -112,13 +112,14 @@ def stored():
 def test_run_matches_reference(stored, name, opt):
     net = tcore.make_scenario(tcore.TABLE_II[name], device="cpu")
     phi, hist = tcore.run(net, tcore.spt_phi_sparse(net), n_iters=N_ITERS,
+                          method="sparse",
                           **run_opts(name, opt, net, torch.as_tensor))
     key = f"{name}__{opt}__"
     want = stored[key + "costs"]
     assert len(hist["costs"]) == len(want)
     assert hist["n_rejected"] == int(stored[key + "n_rejected"])
     np.testing.assert_allclose(hist["costs"], want, rtol=1e-4)
-    fl, _ = tcore.flows_carry_and_cost(net, phi)
+    fl, _ = tcore.flows_carry_and_cost(net, phi, "sparse")
     t = {"data": fl.t_data, "local": fl.t_data, "result": fl.t_result}
     for f, got in zip(PHI_FIELDS, phi_sparse_to_numpy(phi)):
         ref = stored[key + f"phi_{f}"]
@@ -190,7 +191,7 @@ def propose_inputs():
     tnet = tcore.make_scenario(tcore.TABLE_II[name], device="cpu")
     nbrs = tcore.build_neighbors(tnet.adj)
     tphi, _ = tcore.run(tnet, tcore.spt_phi_sparse(tnet), n_iters=3,
-                        driver="host")
+                        driver="host", method="sparse")
     arrays = phi_sparse_to_numpy(tphi)
     jnet = jax_net(tnet)
     jnb = jcore.build_neighbors(tnet.adj.numpy())
@@ -232,12 +233,12 @@ def test_propose_matches_reference(propose_inputs, case):
         j_kw = dict(mask_data=jnp.asarray(md), mask_result=jnp.asarray(mr))
         tphi = tcore.sparse_to_phi(tphi, nbrs, tnet.V)
         jphi = jnetwork.sparse_to_phi(jphi, jnb, tnet.V)
-    tfl, T = tcore.flows_carry_and_cost(tnet, tphi, nbrs=nbrs)
+    tfl, T = tcore.flows_carry_and_cost(tnet, tphi, "sparse", nbrs=nbrs)
     tconsts = tcore.make_consts(tnet, T)
     jfl, jT = jnetwork.flows_carry_and_cost(jnet, jphi, "sparse", nbrs=jnb)
     jconsts = jsgp.make_consts(jnet, jT)
     got, _ = tsgp._sgp_propose_impl(tnet, tphi, tfl, tconsts, nbrs=nbrs,
-                                    **opts, **t_kw)
+                                    method="sparse", **opts, **t_kw)
     sigma = opts.pop("sigma", 1.0)
     fn = jax.jit(partial(jsgp._sgp_propose_impl, method="sparse",
                          slot_F=True, nbrs=jnb, **opts))

@@ -35,7 +35,8 @@ def test_bucketed_ba_matches_reference_and_padded():
     bphi, bh = check_port_row(stored_row("ba_small_bucketed"), BA_SMALL,
                               bucketed=True)
     net = tcore.make_scenario(BA_SMALL, device="cpu")
-    pphi, ph = tcore.run(net, tcore.spt_phi_sparse(net), n_iters=N_ITERS)
+    pphi, ph = tcore.run(net, tcore.spt_phi_sparse(net), n_iters=N_ITERS,
+                         method="sparse")
     assert ph["costs"] == bh["costs"]
     assert ph["n_rejected"] == bh["n_rejected"]
     for a, b in zip(phi_sparse_to_numpy(pphi), phi_sparse_to_numpy(bphi)):

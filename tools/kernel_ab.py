@@ -33,8 +33,10 @@ in, in the order source, variants, variants reversed, source:
   iteration (recorded from `core.run`);
 * K2: ba_10000's cold traffic, marginals and taint-pair solves and the
   seven solves of its main path's first iteration;
-* K3: the two QP calls of each main path's first iteration and
-  ba_10000's data rows under a random 70 % mask;
+* K3: the two QP calls of each main path's first iteration, the dense
+  engine's first two at sw_1000 ([64,000, 1,001] and [64,000, 1,000])
+  and at sw_queue ([12,000, 101] and [12,000, 100]), and ba_10000's data
+  rows under a random 70 % mask;
 * K6: Mamba2-130M's prefill scan (x [1, L, 24, 64], B/C [1, L, 128])
   at the 12 prompt lengths of its serve, in bf16 and float32, and the
   serve's sum over them (24 layers);
@@ -376,8 +378,11 @@ def k2_ab(torch, cs, ref, ab):
 
 
 def k3_ab(torch, cs, ref, ab):
-    """K3 at both main paths' first-iteration QPs and ba_10000's rows
-    under a random 70 % mask, to 1e-5."""
+    """K3 at both main paths' first-iteration QPs, the dense engine's
+    (sw_1000, sw_queue) and ba_10000's rows under a random 70 % mask, to
+    1e-5."""
+    from repro_torch import core
+    from repro_torch.kernels import ops
     from repro_torch.kernels import simplex_project as spm
     dev = torch.device("cuda")
     cases = []
@@ -385,6 +390,13 @@ def k3_ab(torch, cs, ref, ab):
         net, nb, _, rec = path_operands(torch, cs, name)
         cases += [(f"{name} path call {i}", a[:4])
                   for i, a in enumerate(rec["simplex_project"])]
+    for name in cs.DENSE_K3_SCENARIOS:
+        net = core.make_scenario(core.TABLE_II[name], device=dev)
+        rec = cs.record_path_operands(torch, core, ops, net, None, None,
+                                      False, method="dense")
+        cases += [(f"{name} dense path call {i}", a[:4])
+                  for i, a in enumerate(rec["simplex_project"])]
+        del net, rec
     gen = torch.Generator(device=dev).manual_seed(1)
     R, K = 160000, 278
     phi = torch.rand((R, K), generator=gen, device=dev)
@@ -492,7 +504,8 @@ def path_ab(torch, cs, build, libs):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 _, hist = core.run(net, phi0, n_iters=cs.N_ITERS,
-                                   bucketed=bucketed, nbrs=nb,
+                                   method="sparse", bucketed=bucketed,
+                                   nbrs=nb,
                                    buckets=bk if bucketed else None,
                                    driver="host")
                 torch.cuda.synchronize()

@@ -94,6 +94,27 @@
    iterations (K1 and K3) with `run_lpr`'s greedy branch, SGP's final φ
    loop-free.  Each record carries its seconds, ms an iteration and
    launches; the phase its seconds.
+   The `replay` phase then runs churn replay (`core.ReplayEngine`) at the
+   reference's sizes, against `src/repro_torch/data/
+   reference_replay.json` (the JAX `ReplayEngine`): `sw_1000_churn`
+   (padded: K1 + K3), `ba_1000_churn` (bucketed: K2 + K3) and
+   `sw_1000_taskchurn` (a task pool: arrivals, a departure, a recycled
+   slot), the canned schedules of `scenarios.churn_schedule`.  Each row's
+   event loop checks the invariants after every event and is held to
+   the golden: the same events, segment lengths and accepted steps,
+   costs to rtol 2e-4, segment costs that never rise, the admissions;
+   the churn rows run again with the cold baseline (warm and cold
+   iterations-to-target equal to the golden's); the fused stream (one
+   CUDA graph a same-graph window, `FusedStream.rebaseline` between
+   events) must equal the event loop bit for bit (costs, final φ,
+   records), and the task row's inactive rows must be exactly inert.
+   Then `ba_10000_churn` (bucketed, no golden), stream against loop bit
+   for bit with the invariants at the end.  Each record carries the
+   launches of every run (K1 or K2, and K3, each above 0), the graphs'
+   captures and capture seconds an event, the SPT cache's hits, the
+   host's `refeasibilize_sparse` ms after the hub failure, and ms an
+   event and an iteration of loop and stream in alternating rounds
+   (median and spread).
 4. Serves Qwen3-0.6B (28 layers), then Mamba2-130M (24 layers), at full
    width through `ServingEngine`, random weights from SERVE_SEED: 12
    requests on 8 slots, max_len 1024, 32 new tokens (Mamba2's prompts
@@ -663,6 +684,13 @@ def main() -> int:
         "seconds": time.perf_counter() - t_paper})
     gc.collect()
     torch.cuda.empty_cache()
+    # ------------------------------------------------------ replay phase
+    t_replay = time.perf_counter()
+    replay = replay_phase(torch, core, ops, dev, src)
+    for k, v in replay.items():
+        path_launches[k] += v
+    emit({"phase": "replay", "case": "done", "launches": replay,
+          "seconds": time.perf_counter() - t_replay})
     # ------------------------------------- serving Qwen3-0.6B, Mamba2-130M
     serve_counts, serve_bf16 = serve_checks(
         torch, src, SERVE_ARCH, "reference_serve.json", SERVE_REQUESTS,
@@ -1090,6 +1118,303 @@ def paper_real_size(torch, core, ops, dev, src) -> dict:
     require(all(map(math.isfinite, totals.values())),
             f"{PAPER_REAL}: a total is not finite: {totals}")
     require(cert["loop_free"], f"{PAPER_REAL}: SGP's final φ has a loop")
+    return launches
+
+
+# ----------------------------------------------------------- replay phase
+# churn replay (`core.replay.ReplayEngine`) at the reference's sizes: the
+# golden rows of `reference_replay.json` (key, scenario, bucketed, task
+# pool), then ba_10000 (no golden: the reference takes tens of minutes
+# to replay it on a CPU), stream against the event loop
+REPLAY_ROWS = (("sw_1000_churn", "sw_1000", False, False),
+               ("ba_1000_churn", "ba_1000", True, False),
+               ("sw_1000_taskchurn", "sw_1000", False, True))
+REPLAY_BIG = ("ba_10000_churn", "ba_10000", True, False)
+REPLAY_TAIL = 5
+REPLAY_RTOL = 2e-4
+# the step out of a steep start and the costs after it (`steep_step`)
+STEEP_FACTOR = 10.0
+STEEP_RTOL = 1e-1
+AFTER_STEEP_RTOL = 1e-3
+REPLAY_ROUNDS = 3          # alternating loop / stream timing rounds
+REPLAY_BIG_ROUNDS = 1      # beside its checked loop and stream runs
+RECURSION_KERNELS = ("edge_rounds", "edge_rounds_bucketed",
+                     "simplex_project")
+
+
+def replay_golden(src) -> dict:
+    with open(os.path.join(src, "repro_torch", "data",
+                           "reference_replay.json")) as f:
+        return json.load(f)
+
+
+def replay_setup(core, scenario, task, key, dev):
+    """(net, pool, canned schedule) of a replay row on `dev`."""
+    if task:
+        net, pool = core.taskchurn_scenario(scenario, device=dev)
+    else:
+        net = core.make_scenario(core.TABLE_II[scenario], device=dev)
+        pool = None
+    return net, pool, core.churn_schedule(key, net)
+
+
+def replay_run(torch, core, ops, dev, net, pool, sched, bucketed, **play):
+    """One replay from φ⁰, the launch counters set to 0 just before it.
+    `play` splits into the engine's options (invariant_checks) and
+    `play`'s.  Returns (engine, history, wall seconds, launches)."""
+    inv = play.pop("invariant_checks", False)
+
+    def go():
+        eng = core.ReplayEngine(net, bucketed=bucketed, invariant_checks=inv,
+                                pool=pool.clone() if pool is not None
+                                else None)
+        return eng, eng.play(sched, tail_iters=REPLAY_TAIL, **play)
+    (eng, hist), seconds, counts = timed(torch, ops, dev, go)
+    return eng, hist, seconds, counts
+
+
+def replay_same(label, torch, a, b) -> None:
+    """Two replays of the port bit for bit: costs, final φ, records and
+    admissions (modulo the stream's window stamps)."""
+    (ea, ha), (eb, hb) = a, b
+    require(ha["costs"] == hb["costs"] and ha["n_iters"] == hb["n_iters"],
+            f"{label}: the stream's costs differ from the event loop's")
+    rec = [[(r.it, r.kind, r.cost_before, r.cost_after, r.segment_costs,
+             r.segment_iters) for r in h["records"]] for h in (ha, hb)]
+    require(rec[0] == rec[1], f"{label}: the records differ")
+    adm = [[(x.action, x.slot, x.n_active, x.S_cap)
+            for x in h["admission_events"]] for h in (ha, hb)]
+    require(adm[0] == adm[1], f"{label}: the admissions differ")
+    require(all(torch.equal(x, y) for x, y in zip(
+        (ea.phi.data, ea.phi.local, ea.phi.result),
+        (eb.phi.data, eb.phi.local, eb.phi.result))),
+        f"{label}: the final φ differs")
+
+
+def steep_step(w) -> bool:
+    """True where a golden record's repaired iterate starts far up the
+    queue cost's quadratic continuation (flows past SAT·capacity: its
+    cost above STEEP_FACTOR times where its segment ends).  The first
+    step out of it turns on ulp-level differences of large marginals: a
+    one-ulp change of the capacities moves the reference's own cost
+    there by up to 1.9 % and every later cost by up to 4.5e-4
+    (ROADMAP.md §3)."""
+    seg = w["segment_costs"]
+    return bool(seg) and w["cost_after"] > STEEP_FACTOR * seg[-1]
+
+
+def replay_check(label, hist, want=None, cold=False) -> dict:
+    """A replay's records: finite segment costs that never rise and, with
+    a golden `want`, the reference's events, segments, accepted and
+    rejected steps (segment lengths), admissions and (cold) warm / cold
+    iterations-to-target.  Costs hold to REPLAY_RTOL up to the first
+    steep start (`steep_step`), the step out of it to STEEP_RTOL and the
+    costs after it to AFTER_STEEP_RTOL.  Returns the largest relative
+    difference under each bound."""
+    recs = hist["records"]
+    for r in recs:
+        seg = r.segment_costs
+        require(all(map(math.isfinite, [r.cost_after] + seg)),
+                f"{label}: a cost is not finite")
+        require(all(b <= a for a, b in zip(seg, seg[1:])),
+                f"{label}: a segment cost rose ({r.kind} at {r.it})")
+    if want is None:
+        return {}
+    require(len(recs) == len(want["records"]), f"{label}: event count")
+    require(hist["n_iters"] == want["n_iters"]
+            and len(hist["costs"]) == len(want["costs"]),
+            f"{label}: iteration counts")
+    # the costs before the first event, then each event's segment
+    n0 = len(want["costs"]) - sum(1 + len(w["segment_costs"])
+                                  for w in want["records"])
+    pairs = [(REPLAY_RTOL, a, b) for a, b in
+             zip(hist["costs"][:n0], want["costs"][:n0])]
+    tol = REPLAY_RTOL
+    for r, w in zip(recs, want["records"]):
+        require((r.it, r.kind, r.segment_iters, len(r.segment_costs))
+                == (w["it"], w["kind"], w["segment_iters"],
+                    len(w["segment_costs"])),
+                f"{label}: {r.kind} at {r.it}: {r.segment_iters} iterations"
+                f", {len(r.segment_costs)} accepted vs the reference's "
+                f"{w['segment_iters']}, {len(w['segment_costs'])}")
+        got = [r.cost_before, r.cost_after] + r.segment_costs
+        ref = [w["cost_before"], w["cost_after"]] + w["segment_costs"]
+        for i, (a, b) in enumerate(zip(got, ref)):
+            if i == 2 and steep_step(w):
+                pairs.append((STEEP_RTOL, a, b))
+                tol = AFTER_STEEP_RTOL
+            else:
+                pairs.append((tol, a, b))
+        if cold:
+            require((r.warm_iters, r.cold_iters)
+                    == (w["warm_iters"], w["cold_iters"]),
+                    f"{label}: {r.kind} at {r.it}: warm / cold "
+                    f"{r.warm_iters} / {r.cold_iters} vs the reference's "
+                    f"{w['warm_iters']} / {w['cold_iters']}")
+    worst = {}
+    for t, a, b in pairs:
+        err = rel_err(a, b)
+        require(err <= t, f"{label}: a cost {a} differs from the "
+                f"reference's {b} by rtol {err} > {t}")
+        worst[str(t)] = max(worst.get(str(t), 0.0), err)
+    adm = [(x.action, x.slot, x.n_active, x.S_cap)
+           for x in hist["admission_events"]]
+    require(adm == [(x["action"], x["slot"], x["n_active"], x["S_cap"])
+                    for x in want["admission_events"]],
+            f"{label}: admissions {adm}")
+    return worst
+
+
+def graph_summary(eng, n_events) -> dict:
+    """The CUDA graphs an engine's chunks and streams captured."""
+    caps = sum(g["captures"] for g in eng.graph_log)
+    secs = sum(g["capture_s"] or 0.0 for g in eng.graph_log)
+    return {"captures": caps, "capture_s": secs,
+            "capture_s_per_event": secs / max(n_events, 1)}
+
+
+def spread(xs) -> dict:
+    xs = sorted(xs)
+    return {"median": xs[len(xs) // 2], "min": xs[0], "max": xs[-1],
+            "all": xs}
+
+
+def replay_timing(torch, core, ops, dev, net, pool, sched, bucketed,
+                  rounds, first=None) -> dict:
+    """Event loop and fused stream (no invariant checks) in alternating
+    rounds: ms an event and ms an iteration, median and spread.  `first`
+    ((loop seconds, stream seconds), iterations) counts an unchecked
+    pair run before as the first round."""
+    out = {m: {"ms_per_event": [], "ms_per_iteration": []}
+           for m in ("loop", "stream")}
+
+    def add(mode, seconds, n_iters):
+        out[mode]["ms_per_event"].append(seconds * 1e3 / len(sched.events))
+        out[mode]["ms_per_iteration"].append(seconds * 1e3 / n_iters)
+    start = 0
+    if first is not None:
+        (loop_s, stream_s), n_iters = first
+        add("loop", loop_s, n_iters)
+        add("stream", stream_s, n_iters)
+        start = 1
+    for k in range(start, start + rounds):
+        for mode in (("loop", "stream") if k % 2 == 0
+                     else ("stream", "loop")):
+            _, hist, seconds, _ = replay_run(
+                torch, core, ops, dev, net, pool, sched, bucketed,
+                stream=mode == "stream")
+            add(mode, seconds, hist["n_iters"])
+    return {m: {k: spread(v) for k, v in d.items()} for m, d in out.items()}
+
+
+def repair_ms(torch, core, dev, net, sched, reps=3) -> list:
+    """ms of `refeasibilize_sparse` (tiles, Dijkstra, device repair) after
+    the schedule's node failure, on a 5-iteration warm iterate."""
+    nbrs = core.build_neighbors(net.adj)
+    st = core.init_run_state(net, core.spt_phi_sparse(net, nbrs),
+                             method="sparse", nbrs=nbrs)
+    core.run_chunk(net, st, 5)
+    churn = core.ChurnState(net)
+    for _, ev in sched.events:
+        churn.apply(ev)
+        if core.event_kind(ev) == "topology":
+            break
+    failed = churn.network()
+    times = []
+    for _ in range(reps):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        core.refeasibilize_sparse(failed, st.phi, nbrs)
+        sync(torch, dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def replay_phase(torch, core, ops, dev, src) -> dict:
+    """The `replay` phase: each golden row's event loop (invariant checks
+    after every event; the churn rows again with the cold baseline), its
+    fused stream against it bit for bit, and both timed; then ba_10000's
+    stream against its event loop with the invariants at the end.
+    Returns the K1-K3 launches of the replays."""
+    gold = replay_golden(src)
+    launches = dict.fromkeys(RECURSION_KERNELS, 0)
+
+    def count(label, counts, need):
+        for k in RECURSION_KERNELS:
+            launches[k] += counts[k]
+        require(all(counts[k] > 0 for k in need),
+                f"{label}: launches {counts}, expected {need}")
+        return {k: counts[k] for k in RECURSION_KERNELS}
+
+    for key, scenario, bucketed, task in REPLAY_ROWS + (REPLAY_BIG,):
+        t_row = time.perf_counter()
+        net, pool, sched = replay_setup(core, scenario, task, key, dev)
+        want = gold.get(key)
+        need = (("edge_rounds_bucketed" if bucketed else "edge_rounds"),
+                "simplex_project")
+        if want is not None:
+            got = [[t, type(ev).__name__] for t, ev in sched.events]
+            require(got == [[t, e["type"]] for t, e in want["schedule"]],
+                    f"{key}: schedule {got}")
+        args = (torch, core, ops, dev, net, pool, sched, bucketed)
+        record = {"phase": "replay", "case": key, "scenario": scenario,
+                  "V": net.V, "S": net.S, "bucketed": bucketed,
+                  "pool": None if pool is None else
+                  {"n_active": pool.n_active, "S_cap": pool.S_cap},
+                  "events": len(sched.events)}
+        big = want is None
+        loop = replay_run(*args, invariant_checks=not big, stream=False)
+        eng, hist, seconds, counts = loop
+        record["loop"] = {
+            "invariant_checks": not big, "seconds": seconds,
+            "iterations": hist["n_iters"], "final_cost": hist["final_cost"],
+            "max_rel_err_vs_reference_by_bound": replay_check(key, hist,
+                                                              want),
+            "spt_cache_hits": eng.spt_cache_hits,
+            "graphs": graph_summary(eng, len(sched.events)),
+            "launches": count(f"{key} loop", counts, need),
+            "records": [[r.it, r.kind, r.cost_before, r.cost_after,
+                         r.segment_iters] for r in hist["records"]]}
+        if not task and not big:
+            ceng, chist, seconds, counts = replay_run(
+                *args, invariant_checks=True, cold_baseline=True)
+            replay_check(f"{key} cold", chist, want, cold=True)
+            replay_same(f"{key} cold", torch, (eng, hist), (ceng, chist))
+            record["cold_baseline"] = {
+                "seconds": seconds, "warm_cold_iters": [
+                    [r.kind, r.warm_iters, r.cold_iters]
+                    for r in chist["records"]],
+                "launches": count(f"{key} cold", counts, need)}
+        seng, shist, seconds, counts = replay_run(*args, stream=True)
+        replay_same(key, torch, loop[:2], (seng, shist))
+        record["stream"] = {
+            "seconds": seconds, "bitwise_equals_loop": True,
+            "spt_cache_hits": seng.spt_cache_hits,
+            "graphs": graph_summary(seng, len(sched.events)),
+            "launches": count(f"{key} stream", counts, need)}
+        if big:
+            for label, e in (("loop", eng), ("stream", seng)):
+                core.check_invariants(e.net, e.phi, e.nbrs, n_loop_tasks=4)
+            record["invariants_at_end"] = True
+        if task:
+            act = torch.as_tensor(eng.pool.active, device=dev)
+            for f, fill in (("data", 0.0), ("local", 1.0), ("result", 0.0)):
+                require(bool((getattr(eng.phi, f)[~act] == fill).all()),
+                        f"{key}: an inactive row is not inert")
+            record["admissions"] = [[x.action, x.slot]
+                                    for x in hist["admission_events"]]
+        record["host_repair_ms"] = (None if task else repair_ms(
+            torch, core, dev, net, sched))
+        record["timing"] = replay_timing(
+            *args, REPLAY_BIG_ROUNDS if big else REPLAY_ROUNDS,
+            first=((record["loop"]["seconds"], record["stream"]["seconds"]),
+                   hist["n_iters"]) if big else None)
+        record["seconds"] = time.perf_counter() - t_row
+        emit(record)
+        del eng, seng, loop, hist, shist
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     return launches
 
 

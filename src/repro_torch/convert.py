@@ -1,11 +1,13 @@
-"""Carry a network, an iterate, LM weights and LM state across from numpy
-arrays.
+"""Carry a network, an iterate, a churn schedule and task pool, LM
+weights and LM state across from numpy arrays.
 
 The port never sees another framework's types: a caller hands over the
 fields as numpy arrays (`np.asarray(...)` of whatever holds them) and
 gets numpy arrays back.  Floats become float32, index arrays int64.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -165,3 +167,57 @@ def lm_state_from_numpy(cfg, tree: dict, device=None) -> dict:
         raise ValueError(f"{cfg.name}: the state tree {got} does not match "
                          f"the model's {want}")
     return module.tree_map(lambda a: _f32(a, dev), tree)
+
+
+# ------------------------------------------------------------- churn
+_EVENT_TYPES = ("RateScale", "SourceRedraw", "DestRedraw", "RateSet",
+                "NodeFail", "NodeRecover", "LinkCut", "LinkRestore",
+                "TaskArrive", "TaskDepart")
+
+
+def event_from_numpy(type_name: str, fields: dict):
+    """A port churn event from its class name in `core.events` and its
+    fields (numbers, or numpy arrays for `TaskArrive.r` / `.w` and
+    `RateSet.r`)."""
+    from .core import events
+    if type_name not in _EVENT_TYPES:
+        raise ValueError(f"unknown churn event type {type_name!r}")
+    cls = getattr(events, type_name)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name in fields:
+            v = fields[f.name]
+            kw[f.name] = np.asarray(v) if isinstance(v, (list, np.ndarray)) \
+                else v
+    return cls(**kw)
+
+
+def event_to_numpy(event) -> tuple:
+    """(class name, fields) of a churn event, arrays as numpy arrays."""
+    return type(event).__name__, {
+        f.name: (np.asarray(getattr(event, f.name))
+                 if isinstance(getattr(event, f.name), (list, np.ndarray))
+                 else getattr(event, f.name))
+        for f in dataclasses.fields(event)}
+
+
+def schedule_from_numpy(events, name: str = ""):
+    """A port `ChurnSchedule` from ((iteration, class name, fields), ...),
+    e.g. a reference schedule's events through `event_to_numpy`."""
+    from .core.events import ChurnSchedule
+    return ChurnSchedule(tuple((int(t), event_from_numpy(k, f))
+                               for t, k, f in events), name=name)
+
+
+def pool_from_numpy(active, policy: str, ever_padded: bool,
+                    queue=()) -> "TaskPool":
+    """A port `TaskPool` from its state: the [S_cap] bool `active`, the
+    admission policy, whether a slot was ever empty, and the deferred
+    arrivals as (class name, fields) pairs."""
+    from .core.events import TaskPool
+    active = np.asarray(active, dtype=bool).copy()
+    pool = TaskPool(int(active.sum()), S_cap=active.shape[0], policy=policy)
+    pool.active = active
+    pool.ever_padded = bool(ever_padded)
+    pool.queue = [event_from_numpy(k, f) for k, f in queue]
+    return pool

@@ -48,19 +48,32 @@ def _solve_downstream(phi_nbr, b, method: str):
     raise ValueError(f"unknown method {method!r}")
 
 
+def _mask_inactive(mg: Marginals, active: torch.Tensor) -> Marginals:
+    """ρ rows of inactive task slots zeroed (inert slots carry no rate,
+    so nothing reads them; a padded pool leaks nothing through them)."""
+    am = active[:, None]
+    return dataclasses.replace(
+        mg, rho_data=torch.where(am, mg.rho_data, 0.0),
+        rho_result=torch.where(am, mg.rho_result, 0.0))
+
+
 def compute_marginals(net: CECNetwork, phi, fl, method: str = "dense",
                       nbrs: Neighbors | None = None,
-                      slot_F: bool = False, buckets=None) -> Marginals:
+                      slot_F: bool = False, buckets=None,
+                      active: torch.Tensor | None = None) -> Marginals:
     """`phi` is a dense `Phi`, or (method="sparse" only) a `PhiSparse`.
     slot_F=True (sparse) declares `fl.F` the [V, Dmax] slot link flow of
-    a driver `FlowsCarry`; otherwise `fl.F` is the dense [V, V] flow."""
+    a driver `FlowsCarry`; otherwise `fl.F` is the dense [V, V] flow.
+    `active` ([S] bool, a task pool's mask) zeroes the ρ rows of inactive
+    slots; δ, D' and C' are unaffected (inert slots carry no flow)."""
     check_method(method)
     if isinstance(phi, PhiSparse) and method != "sparse":
         raise ValueError("PhiSparse requires method='sparse'")
     if method == "sparse":
         nbrs = nbrs if nbrs is not None else build_neighbors(net.adj)
-        return _compute_marginals_sparse(net, phi, fl, nbrs, slot_F=slot_F,
-                                         buckets=buckets)
+        mg = _compute_marginals_sparse(net, phi, fl, nbrs, slot_F=slot_F,
+                                       buckets=buckets)
+        return mg if active is None else _mask_inactive(mg, active)
     adjf = net.adj.to(phi.data.dtype)
     Dp = torch.where(net.adj, net.link_cost.d1(fl.F), 0.0)
     Cp = net.comp_cost.d1(fl.G)
@@ -81,7 +94,8 @@ def compute_marginals(net: CECNetwork, phi, fl, method: str = "dense",
     delta_result = Dp[None] + rho_result[:, None, :] + ninf
     delta_data_nbr = Dp[None] + rho_data[:, None, :] + ninf
     delta_data = torch.cat([delta_data_nbr, delta_local[..., None]], dim=-1)
-    return Marginals(rho_data, rho_result, delta_data, delta_result, Dp, Cp)
+    mg = Marginals(rho_data, rho_result, delta_data, delta_result, Dp, Cp)
+    return mg if active is None else _mask_inactive(mg, active)
 
 
 def _compute_marginals_sparse(net: CECNetwork, phi, fl, nbrs: Neighbors,

@@ -760,3 +760,231 @@ def refeasibilize(net: CECNetwork, phi: Phi, rebuild_tasks=None) -> Phi:
     result = torch.where(broken[:, None, None], spt, result)
     result = torch.where(is_dest[..., None], 0.0, result)
     return Phi(data, result)
+
+
+# ------------------------------------------------- edge-slot repair
+def sanitize_phi_sparse(phi_sp: PhiSparse, nbrs: Neighbors) -> PhiSparse:
+    """On-device repair of a damaged edge-slot iterate (no topology
+    change, no host read): non-finite entries and padding zeroed,
+    negatives clipped, data rows renormalised with lost mass to local
+    offload (an emptied row becomes all-local), surviving result rows
+    renormalised and emptied ones left empty.  Not a projection: a
+    feasible iterate passes through up to renormalisation."""
+
+    def scrub(x, mask):
+        x = torch.where(torch.isfinite(x), x, 0.0)
+        x = torch.clamp_min(x, 0.0)
+        return torch.where(mask, x, 0.0) if mask is not None else x
+
+    data = scrub(phi_sp.data, nbrs.out_mask[None])
+    local = scrub(phi_sp.local[..., 0], None)
+    dsum = torch.sum(data, dim=-1) + local
+    local = local + torch.clamp_min(1.0 - dsum, 0.0)
+    tot = torch.clamp_min(torch.sum(data, dim=-1) + local, 1e-30)
+    data = data / tot[..., None]
+    local = local / tot
+    result = scrub(phi_sp.result, nbrs.out_mask[None])
+    rsum = torch.sum(result, dim=-1)
+    result = result / torch.clamp_min(rsum[..., None], 1e-30)
+    result = torch.where(rsum[..., None] > 1e-12, result, 0.0)
+    return PhiSparse(data, local[..., None], result)
+
+
+def _slot_remap(old: Neighbors, new: Neighbors):
+    """Per-row map from the NEW out-edge slots to the OLD slot of the
+    same edge (numpy, on the host): remap[i, e'] = e with
+    old.out_nbr[i, e] == new.out_nbr[i, e'], and valid[i, e'] where that
+    edge existed in the old layout.  Re-slots [S, V, Dmax_old] arrays
+    with one gather."""
+    o_nbr = old.out_nbr.cpu().numpy()
+    n_nbr = new.out_nbr.cpu().numpy()
+    V = o_nbr.shape[0]
+    slot_of = np.full((V, V), -1, np.int64)
+    ii, ee = np.nonzero(old.out_mask.cpu().numpy())
+    slot_of[ii, o_nbr[ii, ee]] = ee
+    remap = slot_of[np.arange(V)[:, None], n_nbr]
+    valid = new.out_mask.cpu().numpy() & (remap >= 0)
+    dev = new.out_nbr.device
+    return (torch.as_tensor(np.maximum(remap, 0), device=dev),
+            torch.as_tensor(valid, device=dev))
+
+
+def _repair_rows(net: CECNetwork, data, local, result, rsum_before,
+                 out_mask, rebuild_tasks, spt_sp) -> PhiSparse:
+    """The repair arithmetic both `refeasibilize_sparse` variants share,
+    in one order of operations (which is what makes the same-graph
+    variant bit for bit the full repair): data rows renormalised with
+    missing mass to local offload; a task whose result routing lost mass
+    at a live node (or whose empty row now carries locally computed
+    input) rebuilt from the shortest-path rows `spt_sp`, as is every
+    task `rebuild_tasks` names; destination rows emptied."""
+    dsum = torch.sum(data, dim=-1) + local
+    # missing mass goes to local offload
+    local = local + torch.clamp_min(1.0 - dsum, 0.0)
+    tot = torch.clamp_min(torch.sum(data, dim=-1) + local, 1e-30)
+    data = data / tot[..., None]
+    local = local / tot
+
+    rsum = torch.sum(result, dim=-1)                       # [S, V]
+    if rsum_before is None:
+        # on the same graph the reslot is an exact copy
+        rsum_before = rsum
+    is_dest = (torch.arange(net.V, device=net.device)[None]
+               == net.dest[:, None])
+    alive = torch.any(out_mask, dim=-1)[None] | is_dest
+    src = (net.r * local > 1e-12) & (net.a[:, None] > 0.0)
+    damaged = (rsum <= 1e-12) & ((rsum_before > 1e-12) | src) \
+        & ~is_dest & alive
+    broken = torch.any(damaged, dim=-1)                    # [S]
+    if rebuild_tasks is not None:
+        broken = broken | rebuild_tasks
+    result = result / torch.clamp_min(rsum[..., None], 1e-30)
+    result = torch.where(rsum[..., None] > 1e-12, result, 0.0)
+    result = torch.where(broken[:, None, None], spt_sp, result)
+    result = torch.where(is_dest[..., None], 0.0, result)
+    return PhiSparse(data, local[..., None], result)
+
+
+def refeasibilize_sparse(net: CECNetwork, phi_sp: PhiSparse, nbrs: Neighbors,
+                         rebuild_tasks=None):
+    """`refeasibilize` for edge-slot iterates after a topology change.
+
+    `nbrs` is the `Neighbors` the iterate is aligned to (the OLD graph);
+    the repaired iterate comes back aligned to `build_neighbors` of the
+    new `net.adj`, with those tiles.  The reference's policy: surviving
+    mass renormalised per row, missing data mass to local offload, a task
+    whose result routing lost mass rebuilt entirely from the new graph's
+    shortest-path tree (partial repair can close a loop), rows that were
+    already empty (a node rejoining after a failure) left empty unless
+    they locally compute restored input; restored edges come back as
+    zero-mass slots.  `rebuild_tasks` ([S] bool) forces tasks onto the
+    SPT.  Returns (phi, new_nbrs)."""
+    new_nbrs = build_neighbors(net.adj)
+    remap, valid = _slot_remap(nbrs, new_nbrs)
+    idx_i = torch.arange(net.V, device=net.device)[:, None]
+
+    def reslot(x_sp):
+        moved = x_sp[:, idx_i, remap]                      # [S, V, Dmax_new]
+        return torch.where(valid, moved, 0.0)
+
+    data = reslot(mask_slots(phi_sp.data, nbrs))
+    result_masked = mask_slots(phi_sp.result, nbrs)
+    result = reslot(result_masked)
+    spt_sp = spt_result_slots(net, new_nbrs)
+    phi = _repair_rows(net, data, phi_sp.local[..., 0], result,
+                       torch.sum(result_masked, dim=-1), new_nbrs.out_mask,
+                       rebuild_tasks, spt_sp)
+    return phi, new_nbrs
+
+
+def refeasibilize_sparse_samegraph(net: CECNetwork, phi_sp: PhiSparse,
+                                   nbrs: Neighbors, rebuild_tasks=None,
+                                   spt_sp=None) -> PhiSparse:
+    """`refeasibilize_sparse` on an UNCHANGED adjacency (routing churn):
+    bit for bit the same repaired iterate with the re-slotting left out
+    (on the same graph it is an exact copy).  `spt_sp` takes
+    `spt_result_slots(net, nbrs)` computed beforehand (the host's
+    per-destination Dijkstra; it depends on the adjacency, the zero-flow
+    link weights and `net.dest`, not on φ); with it every operation is
+    a device op with no host read, so a fused stream can take it."""
+    if spt_sp is None:
+        spt_sp = spt_result_slots(net, nbrs)
+    return _repair_rows(net, mask_slots(phi_sp.data, nbrs),
+                        phi_sp.local[..., 0], mask_slots(phi_sp.result, nbrs),
+                        None, nbrs.out_mask, rebuild_tasks, spt_sp)
+
+
+# ------------------------------------------------- dynamic task pool
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= max(n, 1): the task pool's capacity
+    ladder (`events.TaskPool`)."""
+    n = max(int(n), 1)
+    return 1 << (n - 1).bit_length()
+
+
+def pad_tasks(net: CECNetwork, S_cap: int,
+              n_active: int | None = None) -> CECNetwork:
+    """Pad the task axis to `S_cap` slots for a task pool, optionally
+    deactivating the tail from `n_active` on.  Padded and deactivated
+    rows follow the inert-slot convention: zero rate, zero result ratio,
+    unit weight (the dest / task_type of deactivated rows stay, inert
+    with r = a = 0), so they carry exactly zero traffic, flow and cost.
+    Adjacency and costs are untouched."""
+    S, V = net.S, net.V
+    S_cap = int(S_cap)
+    if S_cap < S:
+        raise ValueError(f"S_cap={S_cap} < S={S}: cannot drop tasks")
+    n_active = S if n_active is None else int(n_active)
+    if not (0 <= n_active <= S):
+        raise ValueError(f"n_active={n_active} outside [0, {S}]")
+    dev = net.device
+    r = torch.zeros((S_cap, V), dtype=net.r.dtype, device=dev)
+    r[:S] = net.r
+    dest = torch.zeros(S_cap, dtype=net.dest.dtype, device=dev)
+    dest[:S] = net.dest
+    a = torch.zeros(S_cap, dtype=net.a.dtype, device=dev)
+    a[:S] = net.a
+    w = torch.ones((S_cap,) + tuple(net.w.shape[1:]), dtype=net.w.dtype,
+                   device=dev)
+    w[:S] = net.w
+    task_type = torch.zeros(S_cap, dtype=net.task_type.dtype, device=dev)
+    task_type[:S] = net.task_type
+    if n_active < S:
+        r[n_active:S] = 0.0
+        a[n_active:S] = 0.0
+        w[n_active:S] = 1.0
+    return dataclasses.replace(net, r=r, dest=dest, a=a, w=w,
+                               task_type=task_type)
+
+
+def pad_phi_sparse(phi_sp: PhiSparse, S_cap: int) -> PhiSparse:
+    """Pad the task axis of an edge-slot iterate to `S_cap` rows with
+    inert rows (all-local data, empty result: what `clear_task_slot`
+    writes)."""
+    S = phi_sp.data.shape[0]
+    S_cap = int(S_cap)
+    if S_cap < S:
+        raise ValueError(f"S_cap={S_cap} < S={S}: cannot drop tasks")
+    if S_cap == S:
+        return phi_sp
+    pad = S_cap - S
+
+    def cat(x, fill):
+        return torch.cat([x, torch.full((pad,) + tuple(x.shape[1:]), fill,
+                                        dtype=x.dtype, device=x.device)])
+    return PhiSparse(cat(phi_sp.data, 0.0), cat(phi_sp.local, 1.0),
+                     cat(phi_sp.result, 0.0))
+
+
+def seed_task_slot(phi_sp: PhiSparse, slot: int,
+                   spt_rows: torch.Tensor) -> PhiSparse:
+    """Seed one recycled task slot from the SPT: all-local data and the
+    slot's `spt_result_slots` row, the φ⁰ row a cold start gives a task
+    (out of place, no host read)."""
+    data, local, result = (phi_sp.data.clone(), phi_sp.local.clone(),
+                           phi_sp.result.clone())
+    data[slot] = 0.0
+    local[slot] = 1.0
+    result[slot] = spt_rows[slot].to(result.dtype)
+    return PhiSparse(data, local, result)
+
+
+def clear_task_slot(phi_sp: PhiSparse, slot: int) -> PhiSparse:
+    """Return a departed task's slot to the inert-slot convention
+    (all-local data, empty result; out of place, no host read)."""
+    data, local, result = (phi_sp.data.clone(), phi_sp.local.clone(),
+                           phi_sp.result.clone())
+    data[slot] = 0.0
+    local[slot] = 1.0
+    result[slot] = 0.0
+    return PhiSparse(data, local, result)
+
+
+def mask_inactive_slots(phi_sp: PhiSparse, active: torch.Tensor) -> PhiSparse:
+    """Every inactive slot ([S] bool `active`) back to the inert-slot
+    convention in one pass (device ops, no host read): a whole-iterate
+    repair can write SPT rows into a slot the pool holds empty."""
+    act = active[:, None, None]
+    return PhiSparse(torch.where(act, phi_sp.data, 0.0),
+                     torch.where(act, phi_sp.local, 1.0),
+                     torch.where(act, phi_sp.result, 0.0))

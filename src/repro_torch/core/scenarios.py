@@ -172,20 +172,122 @@ def churn_hub(net: CECNetwork) -> int:
     return hub_node(net)        # every node is a destination (tiny nets)
 
 
+def churn_schedule(name: str, net: CECNetwork):
+    """The canned churn schedules of the replay engine, as the reference
+    draws them: "<scenario>_churn" for every TABLE_II row (a rate surge,
+    the failure of the busiest non-destination node, a link flap while
+    it is down, its recovery, the link's restore, task 0's sources
+    re-drawn, the load dropping back) and "<scenario>_taskchurn" for the
+    task-pool mixes (`net` then the padded network `taskchurn_scenario`
+    returns)."""
+    from .events import (ChurnSchedule, LinkCut, LinkRestore, NodeFail,
+                         NodeRecover, RateScale, SourceRedraw)
+    if name.endswith("_taskchurn"):
+        return _taskchurn_schedule(name, net)
+    base = name[:-len("_churn")] if name.endswith("_churn") else name
+    if base not in TABLE_II:
+        raise KeyError(f"no churn schedule for scenario {name!r}")
+    hub = churn_hub(net)
+    adj = net.adj.cpu().numpy()
+    # a busy link away from the hub (flapped while the hub is down); on
+    # hub-dominated graphs a hub edge (then a no-op while it is down)
+    order = np.argsort(-adj.sum(axis=1))
+    u = v = None
+    for i in order:
+        if i == hub:
+            continue
+        js = [j for j in np.nonzero(adj[i])[0] if j != hub]
+        if js:
+            u, v = int(i), int(js[0])
+            break
+    if u is None:
+        u, v = hub, int(np.nonzero(adj[hub])[0][0])
+    events = (
+        (2, RateScale(1.5)),                  # global rate surge
+        (5, NodeFail(hub)),                   # worst-case failure
+        (9, LinkCut(u, v)),                   # link flap, down...
+        (12, NodeRecover(hub)),               # ...the hub returns
+        (15, LinkRestore(u, v)),              # ...and the link
+        (17, SourceRedraw(0, seed=net.S)),    # task 0's sources move
+        (19, RateScale(0.75)),                # load drops back off
+    )
+    return ChurnSchedule(events, name=f"{base}_churn")
+
+
+def taskchurn_scenario(name: str, free: int = 4, policy: str = "reject",
+                       rate_scale: float = 1.0, device=None):
+    """(net, pool) for task-churn replay: TABLE_II's `name` with its last
+    `free` task slots deactivated into pool headroom (S_cap pinned to
+    the spec's S), on `device` (None: the card).  The pool has headroom
+    from the start, so the engine threads the active mask from
+    iteration 0 and arrivals change values only."""
+    from .events import TaskPool
+    from .network import pad_tasks
+    base = make_scenario(TABLE_II[name], rate_scale=rate_scale,
+                         device=device)
+    S = int(base.S)
+    if not (0 < free < S):
+        raise ValueError(f"free={free} outside (0, {S})")
+    net = pad_tasks(base, S, n_active=S - free)
+    pool = TaskPool(S - free, S_cap=S, policy=policy)
+    return net, pool
+
+
+def _taskchurn_schedule(name: str, net: CECNetwork):
+    """The canned task-pool mix ("<scenario>_taskchurn"): seeded arrivals
+    (one into a freshly recycled slot), a departure, and rate and source
+    churn, every event on the same graph."""
+    from .events import (ChurnSchedule, RateScale, SourceRedraw,
+                         TaskArrive, TaskDepart)
+    base = name[:-len("_taskchurn")]
+    if base not in TABLE_II:
+        raise KeyError(f"no task-churn schedule for scenario {name!r}")
+    V = int(net.V)
+    rng = np.random.RandomState(V + 7)
+
+    def arrival():
+        src = rng.choice(V, size=2, replace=False)
+        row = np.zeros(V)
+        row[src] = rng.uniform(0.3, 0.8, size=2)
+        return TaskArrive(row, dest=int(rng.randint(V)),
+                          a=float(rng.uniform(0.3, 0.9)))
+
+    events = (
+        (2, RateScale(1.2)),                # load surge
+        (4, arrival()),                     # claims the first free slot
+        (6, TaskDepart(0)),                 # slot 0 leaves...
+        (8, arrival()),                     # ...and is recycled here
+        (10, SourceRedraw(1, seed=V)),      # a surviving task drifts
+        (12, arrival()),                    # more headroom claimed
+        (14, RateScale(0.85)),              # load backs off
+    )
+    return ChurnSchedule(events, name=f"{base}_taskchurn")
+
+
+def fail_arrays(adj: np.ndarray, r: np.ndarray, dest: np.ndarray,
+                comp: np.ndarray, comp_family: str, node: int):
+    """`fail_node` on host arrays: (adj, r, comp) with `node` failed, new
+    arrays (the inputs are not written)."""
+    adj = adj.copy()
+    adj[node, :] = False
+    adj[:, node] = False
+    r = r.copy()
+    r[:, node] = 0.0
+    r[dest == node, :] = 0.0
+    comp = comp.copy()
+    comp[node] = 1e-3 if comp_family == "queue" else 1e6
+    return adj, r, comp
+
+
 def fail_node(net: CECNetwork, node: int) -> CECNetwork:
     """Paper Fig. 5b: node failure.  Its links are removed (the row and
     column stay, empty), its compute is disabled, its exogenous inputs
     stop, and the tasks destined to it are dropped (rates zeroed) since
     their results can no longer be delivered."""
     dev = net.device
-    adj = net.adj.cpu().numpy().copy()
-    adj[node, :] = False
-    adj[:, node] = False
-    r = net.r.cpu().numpy().copy()
-    r[:, node] = 0.0
-    r[net.dest.cpu().numpy() == node, :] = 0.0
-    comp = net.comp_cost.params.cpu().numpy().copy()
-    comp[node] = 1e-3 if net.comp_cost.family == "queue" else 1e6
+    adj, r, comp = fail_arrays(
+        net.adj.cpu().numpy(), net.r.cpu().numpy(), net.dest.cpu().numpy(),
+        net.comp_cost.params.cpu().numpy(), net.comp_cost.family, node)
     return dataclasses.replace(
         net, adj=torch.as_tensor(adj, device=dev), r=_f32(r, dev),
         comp_cost=Cost(net.comp_cost.family, _f32(comp, dev)))

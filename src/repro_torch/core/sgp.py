@@ -47,9 +47,10 @@ from ..kernels.ref import simplex_project_ref
 from .marginals import BIG, Marginals, compute_marginals
 from .network import (CECNetwork, FlowsCarry, Neighbors, Phi, PhiSparse,
                       _phi_edge_views, build_buckets, build_neighbors,
-                      check_method, flows_carry_and_cost, gather_edges,
-                      link_cost_sparse, mask_slots, phi_to_sparse,
-                      scatter_edges, sparse_to_phi)
+                      check_method, compute_flows, cost_of_flows,
+                      flows_carry_and_cost, gather_edges, link_cost_sparse,
+                      mask_slots, phi_to_sparse, scatter_edges,
+                      sparse_to_phi)
 
 SUPPORT_TOL = 1e-9   # φ below this is treated as zero support
 SNAP_TOL = 1e-12     # post-projection snap-to-zero
@@ -416,10 +417,20 @@ def _sgp_step_flows_impl(net: CECNetwork, phi, fl: FlowsCarry,
                          scaling: str = "adaptive", sigma=1.0,
                          kappa: float = 0.0,
                          nbrs: Optional[Neighbors] = None, buckets=None,
-                         with_aux: bool = False):
+                         with_aux: bool = False,
+                         active: Optional[torch.Tensor] = None):
     """One driver iteration: propose from the carried flows, then
-    measure the candidate.  Both drivers run exactly this.  Returns
+    measure the candidate.  Both drivers run exactly this.
+
+    `active` ([S] bool, a task pool's mask) is folded into the Theorem-2
+    row masks, so inactive slots' φ rows are kept bit for bit; their r
+    and a are zero, so their flows and cost are exactly zero with no
+    mask on the measurement.  None adds no operation at all.  Returns
     (phi_new, carry_new, cost_new[, marginals of `phi` if with_aux])."""
+    if active is not None:
+        am = active[:, None]                            # [S, 1] -> [S, V]
+        mask_data = am if mask_data is None else mask_data & am
+        mask_result = am if mask_result is None else mask_result & am
     phi_new, mg = _sgp_propose_impl(
         net, phi, fl, consts, variant=variant, beta=beta,
         mask_data=mask_data, mask_result=mask_result,
@@ -431,6 +442,33 @@ def _sgp_step_flows_impl(net: CECNetwork, phi, fl: FlowsCarry,
     if with_aux:
         return phi_new, carry_new, cost_new, mg
     return phi_new, carry_new, cost_new
+
+
+def sgp_step(net: CECNetwork, phi, consts: SGPConsts, variant: str = "sgp",
+             beta: float = 1.0, mask_data=None, mask_result=None,
+             allowed_data=None, allowed_result=None, method: str = "dense",
+             use_blocking: bool = True, scaling: str = "adaptive",
+             sigma=1.0, kappa: float = 1.0,
+             nbrs: Optional[Neighbors] = None, buckets=None):
+    """One synchronized iteration of Algorithm 1 from φ alone, the
+    reference's public step: φ's flows (Eq. 1-2, F dense [V, V]) are
+    solved first, then the marginals, blocked sets, Eq. 16 scaling and
+    projection.  The options are `_sgp_propose_impl`'s (κ defaults to 1,
+    as the reference's).  Returns (phi_new, {"cost", "flows",
+    "marginals"}) with the cost, `Flows` and marginals of `phi`."""
+    fl = compute_flows(net, phi, method, nbrs=nbrs, buckets=buckets)
+    # the step reads F on the slots under the sparse engine: the dense
+    # F gathered there, value for value
+    F = gather_edges(fl.F, nbrs) if method == "sparse" else fl.F
+    phi_new, mg = _sgp_propose_impl(
+        net, phi, FlowsCarry(fl.t_data, fl.t_result, F, fl.G), consts,
+        variant=variant, beta=beta, mask_data=mask_data,
+        mask_result=mask_result, allowed_data=allowed_data,
+        allowed_result=allowed_result, method=method,
+        use_blocking=use_blocking, scaling=scaling, sigma=sigma,
+        kappa=kappa, nbrs=nbrs, buckets=buckets)
+    return phi_new, {"cost": cost_of_flows(net, fl), "flows": fl,
+                     "marginals": mg}
 
 
 # ------------------------------------------------------------------ driver
@@ -474,9 +512,10 @@ class RunState:
     the engine's layout (`PhiSparse` under method="sparse", else `Phi`);
     `it` is the global iteration count (it sets the paper-scaling
     refresh cadence across chunks); `rng` is the torch.Generator, on the
-    network's device, that draws the Theorem-2 row masks; `graph_stats`
-    is what the fused driver's last chunk measured of its CUDA graph
-    (None on the CPU)."""
+    network's device, that draws the Theorem-2 row masks; `active` is a
+    task pool's [S] bool mask (None: every slot live, and no mask
+    operation in the step); `graph_stats` is what the fused driver's
+    last chunk measured of its CUDA graph (None on the CPU)."""
     phi: object                     # Phi | PhiSparse
     consts: SGPConsts
     nbrs: Optional[Neighbors]       # sparse engine only
@@ -491,18 +530,21 @@ class RunState:
     flows: Optional[FlowsCarry] = None   # flows of `phi`
     buckets: object = None          # NeighborBuckets (bucketed mode)
     graph_stats: Optional[dict] = None
+    active: Optional[torch.Tensor] = None   # a task pool's [S] bool mask
 
 
 def init_run_state(net: CECNetwork, phi0, min_scale: float = 0.05,
                    method: str = "dense",
                    rng: Optional[torch.Generator] = None,
                    nbrs: Optional[Neighbors] = None, bucketed: bool = False,
-                   buckets=None) -> RunState:
+                   buckets=None,
+                   active: Optional[torch.Tensor] = None) -> RunState:
     """Under method="sparse", build (or accept) the neighbour lists and,
     with bucketed=True, the degree buckets, and convert a dense φ⁰ to
     slots; the dense and broadcast engines iterate the dense `Phi`.
     Evaluate φ⁰'s flows and cost T⁰ (one solve, both carried) and the
-    Eq. 16 constants."""
+    Eq. 16 constants.  `active` ([S] bool on the net's device) threads a
+    task pool's mask through every step (`_sgp_step_flows_impl`)."""
     check_method(method)
     if rng is not None and rng.device.type != net.device.type:
         raise ValueError(f"the driver's generator lies on {rng.device}, "
@@ -520,7 +562,7 @@ def init_run_state(net: CECNetwork, phi0, min_scale: float = 0.05,
     return RunState(phi=phi0, consts=make_consts(net, T0, min_scale),
                     nbrs=nbrs, method=method, costs=[float(T0)],
                     min_scale=min_scale, rng=rng, flows=fl0,
-                    buckets=buckets)
+                    buckets=buckets, active=active)
 
 
 def _async_masks(gen: torch.Generator, net: CECNetwork, async_frac: float):
@@ -650,7 +692,7 @@ def run_chunk(net: CECNetwork, state: RunState, n_iters: int,
         out = _sgp_step_flows_impl(
             net, phi, fl, consts, mask_data=mask_d, mask_result=mask_r,
             sigma=_f32(sigma, dev), method=state.method, nbrs=state.nbrs,
-            buckets=state.buckets,
+            buckets=state.buckets, active=state.active,
             with_aux=callback is not None, **opts)
         phi_new, fl_new, cost_new = out[:3]
         new_cost = float(cost_new)   # the host driver's one sync
@@ -679,6 +721,34 @@ def run_chunk(net: CECNetwork, state: RunState, n_iters: int,
     return state
 
 
+# the network fields a same-graph churn event may change (the fused
+# stream owns them, and the compute costs)
+_CHURN_FIELDS = ("r", "dest", "a", "w", "task_type")
+# one side stream and one graph memory pool a card, shared by every fused
+# stream's warm-up and capture: each replay's temporaries live in the
+# pool and every value that outlives a replay in the stream's own
+# buffers, so graphs replayed one after another on one stream can share
+# it, and a replay's succession of graphs (one a segment of the event
+# loop) reuses one pool's memory instead of caching a pool a graph.  The
+# last graph captured is kept (`_LAST_GRAPHS`): a pool whose graphs are
+# all gone is released, and its handle cannot be captured into again.
+_SIDE_STREAMS: dict = {}
+_GRAPH_POOLS: dict = {}
+_LAST_GRAPHS: dict = {}
+
+
+def _device_key(dev: torch.device) -> int:
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def _side_stream(dev: torch.device):
+    key = _device_key(dev)
+    if key not in _SIDE_STREAMS:
+        _SIDE_STREAMS[key] = torch.cuda.Stream(device=key)
+        _GRAPH_POOLS[key] = torch.cuda.graph_pool_handle()
+    return _SIDE_STREAMS[key], _GRAPH_POOLS[key]
+
+
 def _fold_fused_histories(state: RunState, sigma, n_rej, stopped,
                           hist: torch.Tensor):
     """The fused chunk's single device-to-host read and its bookkeeping:
@@ -702,20 +772,29 @@ def _fold_fused_histories(state: RunState, sigma, n_rej, stopped,
 class FusedStream:
     """The fused driver: the accept/reject loop with no host read inside.
 
-    The carry (φ, flows, σ, the last accepted cost, counts, `stopped`)
-    lives in device tensors that each iteration updates in place; each
-    iteration's candidate cost and take/live flags land in a device
-    history that `finish` reads back once.  A stopped carry keeps
-    dispatching frozen no-ops whose outputs are discarded.
+    The carry (φ, flows, consts, σ, the last accepted cost, counts,
+    `stopped`) lives in device tensors that each iteration updates in
+    place, as do the network fields a same-graph event changes (r, dest,
+    a, w, task_type, the compute costs) and a task pool's `active` mask:
+    the stream owns copies of all of them.  Each iteration's candidate
+    cost and take/live flags land in a device history that `finish`
+    reads back once.  A stopped carry keeps dispatching frozen no-ops
+    whose outputs are discarded.
 
     On the card the first iteration runs eagerly on a side stream (it
     builds the kernels and their cluster plans), the second is captured
     into a `torch.cuda.CUDAGraph`, and that graph is replayed for every
-    iteration after the first.  The paper-scaling refresh and the
-    Theorem-2 masks are eager ops between replays, writing the buffers
-    the graph reads.  The kernels' launch counters tick once a replay
-    (`kernels.ops.add_launches`).  If the capture fails the run raises;
-    there is no second path.  `stats` records the capture."""
+    iteration after the first.  The paper-scaling refresh, the Theorem-2
+    masks and `rebaseline` are eager ops between replays, writing the
+    buffers the graph reads.  The kernels' launch counters tick once a
+    replay (`kernels.ops.add_launches`).  If the capture fails the run
+    raises; there is no second path.  `stats` records the captures.
+
+    `rebaseline` folds a same-graph churn event into the carry as the
+    replay engine's event loop builds a fresh `RunState` (the same
+    repair, flows, T⁰ and constants, σ and the counts reset), with no
+    host read, so one stream carries a whole window of events and stays
+    bit for bit the event loop (`core.replay`)."""
 
     def __init__(self, net: CECNetwork, state: RunState, fl=None, *,
                  variant: str = "sgp", beta: float = 1.0,
@@ -727,7 +806,7 @@ class FusedStream:
             kappa = 1.0
         if async_frac > 0.0 and state.rng is None:
             raise ValueError("async_frac > 0 needs a driver generator")
-        self.net, self.state = net, state
+        self.state = state
         self._o = dict(variant=variant, beta=beta, allowed_data=allowed_data,
                        allowed_result=allowed_result,
                        use_blocking=use_blocking, scaling=scaling,
@@ -741,9 +820,16 @@ class FusedStream:
         def own(x):
             return type(x)(*(t.clone() for t in _fields(x)))
 
-        # the carry's own buffers (the refresh writes the consts in place)
+        # the buffers the graph reads, owned by the stream
+        self.net = dataclasses.replace(
+            net, **{k: getattr(net, k).clone() for k in _CHURN_FIELDS},
+            comp_cost=dataclasses.replace(
+                net.comp_cost, params=net.comp_cost.params.clone()))
         self._phi, self._fl = own(state.phi), own(fl)
-        self._consts = own(state.consts) if self._refresh else state.consts
+        self._consts = own(state.consts)
+        self._active = (None if state.active is None
+                        else state.active.clone())
+        self._rng = state.rng
         self._sigma = _f32(state.sigma, dev)
         self._prev = _f32(state.costs[-1], dev)
         self._n_costs = torch.full((), len(state.costs), dtype=torch.int32,
@@ -758,15 +844,17 @@ class FusedStream:
                                            device=dev) for _ in range(2))
         self._rec = torch.zeros(3, dtype=torch.float32, device=dev)
         self._hist: list = []
+        self._n_rows = 0              # iterations dispatched so far
         self._gen_states: list = []   # the generator before each draw
-        self._it = state.it
+        self._it = state.it           # the open segment's iteration count
+        self._markers: list = []      # closed segments' boundary scalars
         self._graph = None
         self._per_replay: dict = {}
         self._dispatched = 0
         self._finished = False
         self.stats = {"graph": dev.type == "cuda", "warmup_s": None,
-                      "capture_s": None, "pool_bytes": None, "replays": 0,
-                      "launches_per_replay": None}
+                      "capture_s": None, "captures": 0, "pool_bytes": None,
+                      "replays": 0, "launches_per_replay": None}
 
     def _iterate(self):
         """One iteration on the carry, in place."""
@@ -775,7 +863,7 @@ class FusedStream:
         phi_new, fl_new, cost_new = _sgp_step_flows_impl(
             self.net, self._phi, self._fl, self._consts, mask_data=md,
             mask_result=mr, sigma=self._sigma, nbrs=st.nbrs,
-            buckets=st.buckets, **self._o)
+            buckets=st.buckets, active=self._active, **self._o)
         *scalars, take, live = _accept_update_impl(
             phi_new, fl_new, cost_new, self._phi, self._fl, self._sigma,
             self._prev, self._n_costs, self._n_rej, self._stopped,
@@ -791,7 +879,7 @@ class FusedStream:
             self._iterate()
         elif self._dispatched == 0:
             t0 = time.perf_counter()
-            side = torch.cuda.Stream()
+            side, _ = _side_stream(self.net.device)
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 self._iterate()
@@ -810,10 +898,10 @@ class FusedStream:
         reserved = torch.cuda.memory_reserved()
         before = kernel_ops.launches()
         graph = torch.cuda.CUDAGraph()
-        side = torch.cuda.Stream()
+        side, pool = _side_stream(self.net.device)
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            graph.capture_begin()
+            graph.capture_begin(pool=pool)
             try:
                 self._iterate()
             finally:
@@ -824,10 +912,13 @@ class FusedStream:
         self._per_replay = {k: after[k] - before[k] for k in after
                             if after[k] != before[k]}
         kernel_ops.add_launches(self._per_replay, -1)
-        self._graph = graph
-        self.stats.update(capture_s=time.perf_counter() - t0,
-                          pool_bytes=torch.cuda.memory_reserved() - reserved,
-                          launches_per_replay=dict(self._per_replay))
+        self._graph = _LAST_GRAPHS[_device_key(self.net.device)] = graph
+        self.stats["captures"] += 1
+        self.stats.update(
+            capture_s=(self.stats["capture_s"] or 0.0)
+            + time.perf_counter() - t0,
+            pool_bytes=torch.cuda.memory_reserved() - reserved,
+            launches_per_replay=dict(self._per_replay))
 
     def advance(self, n_iters: int) -> "FusedStream":
         """Dispatch `n_iters` iterations; the host never waits on the
@@ -847,36 +938,143 @@ class FusedStream:
                 for d, s in zip(_fields(self._consts), _fields(fresh)):
                     d.copy_(s)
             if self._masks is not None:
-                self._gen_states.append(self.state.rng.get_state())
+                self._gen_states.append(self._rng.get_state())
                 for d, s in zip(self._masks,
-                                _async_masks(self.state.rng, net,
-                                             self._async)):
+                                _async_masks(self._rng, net, self._async)):
                     d.copy_(s)
             self._dispatch()
             hist[i].copy_(self._rec)
         self._hist.append(hist)
+        self._n_rows += n_iters
         self._it += n_iters
         return self
 
-    def finish(self) -> RunState:
-        """The stream's single device-to-host read; leaves `state` where
-        the host driver would have left it (the generator too)."""
+    def rebaseline(self, net_new: CECNetwork, repair=None, *, rng=None,
+                   active=None) -> "FusedStream":
+        """Fold one SAME-GRAPH churn event into the carry with no host
+        read: close the open segment (its boundary scalars are cloned,
+        since the carry's are overwritten in place, and read in
+        `finish`) and open the next one as the event loop's fresh
+        `RunState` would.
+
+        `repair` maps the current φ to the repaired one (a routing
+        event's `refeasibilize_sparse_samegraph`, a task event's slot
+        repairs; device ops only); a rate event passes None.  The
+        churned network's r, dest, a, w, task_type and compute costs are
+        copied into the buffers the captured graph reads, as are the
+        fresh φ, flows, T⁰ and constants; σ = 1, the counts reset.
+        `net_new` must have the stream's adjacency and link costs
+        (topology events break the stream).  `rng` is the new segment's
+        Theorem-2 generator; `active` a task pool's updated mask (the
+        first mask of a stream that had none captures a new graph)."""
+        if self._finished:
+            raise RuntimeError("stream already finished")
+        if net_new.link_cost.params is not self.net.link_cost.params \
+                or net_new.adj.shape != self.net.adj.shape \
+                or net_new.S != self.net.S:
+            raise ValueError("a rebaseline keeps the graph, the link "
+                             "costs and S: a topology event breaks the "
+                             "stream")
+        st = self.state
+        self._markers.append(dict(end=self._n_rows, prev=self._prev.clone(),
+                                  n_rej=self._n_rej.clone()))
+        phi = self._phi if repair is None else repair(self._phi)
+        fl, T0 = flows_carry_and_cost(net_new, phi, st.method, nbrs=st.nbrs,
+                                      buckets=st.buckets)
+        consts = make_consts(net_new, T0, st.min_scale)
+        self._markers[-1]["T0"] = T0
+        for k in _CHURN_FIELDS:
+            getattr(self.net, k).copy_(getattr(net_new, k))
+        self.net.comp_cost.params.copy_(net_new.comp_cost.params)
+        for own, new in ((self._phi, phi), (self._fl, fl),
+                         (self._consts, consts)):
+            if new is not own:
+                for d, s in zip(_fields(own), _fields(new)):
+                    d.copy_(s)
+        if active is not None:
+            st.active = active
+            if self._active is None:
+                # the step gains the mask's operations: a new graph
+                self._active = active.clone()
+                self._graph, self._dispatched = None, 0
+            else:
+                self._active.copy_(active)
+        self._sigma.fill_(1.0)
+        self._prev.copy_(T0)
+        self._n_costs.fill_(1)
+        self._n_rej.zero_()
+        self._stopped.fill_(False)
+        self._it = 0
+        self._gen_states = []
+        if rng is not None:
+            self._rng = rng
+        return self
+
+    def finish(self) -> list:
+        """The stream's single device-to-host read.
+
+        With no rebaselines it leaves `state` where the host driver
+        would have (costs extended, `it` and `n_rejected` advanced, the
+        generator too) and returns [].  With rebaselines it returns one
+        dict per segment (``accepted`` costs, ``executed`` iterations,
+        ``n_rejected``, and for each closed segment its event's
+        ``cost_before`` and ``cost_after``), the open one last, and
+        leaves `state` as that segment's warm `RunState`: what the event
+        loop's fresh state would be after the same iterations."""
         if self._finished:
             raise RuntimeError("stream already finished")
         self._finished = True
         self._graph = None
         st = self.state
+        dev = self.net.device
         hist = (torch.cat(self._hist) if self._hist else
-                torch.empty((0, 3), device=self.net.device))
-        n_live = _fold_fused_histories(st, self._sigma, self._n_rej,
-                                       self._stopped, hist)
-        if n_live < len(self._gen_states):
-            # a stopped carry's frozen iterations drew masks the host loop
-            # never drew: rewind the generator past them
-            st.rng.set_state(self._gen_states[n_live])
-        st.phi, st.flows, st.consts = self._phi, self._fl, self._consts
+                torch.empty((0, 3), device=dev))
         st.graph_stats = dict(self.stats) if self.stats["graph"] else None
-        return st
+        if not self._markers:
+            self._rewind(_fold_fused_histories(
+                st, self._sigma, self._n_rej, self._stopped, hist))
+            st.phi, st.flows, st.consts = self._phi, self._fl, self._consts
+            return []
+        marks = torch.stack([torch.stack([m["prev"].float(),
+                                          m["n_rej"].float(),
+                                          m["T0"].float()])
+                             for m in self._markers])
+        packed = torch.cat([
+            hist.reshape(-1), marks.reshape(-1),
+            torch.stack([self._sigma.float(), self._n_rej.float(),
+                         self._stopped.float()])]).cpu().tolist()
+        n, m = hist.shape[0], len(self._markers)
+        rows = [packed[3 * i:3 * i + 3] for i in range(n)]
+        marks = [packed[3 * (n + k):3 * (n + k) + 3] for k in range(m)]
+        sigma, n_rej, stopped = packed[-3:]
+        bounds = [0] + [mk["end"] for mk in self._markers] + [n]
+        segs = []
+        for k in range(m + 1):
+            seg_rows = rows[bounds[k]:bounds[k + 1]]
+            seg = {"accepted": [c for c, take, live in seg_rows
+                                if live and take],
+                   "executed": sum(1 for *_, live in seg_rows if live)}
+            if k < m:
+                seg.update(cost_before=marks[k][0],
+                           n_rejected=int(marks[k][1]),
+                           cost_after=marks[k][2])
+            else:
+                seg["n_rejected"] = int(n_rej)
+            segs.append(seg)
+        last = segs[-1]
+        st.costs = [marks[-1][2]] + list(last["accepted"])
+        st.sigma, st.n_rejected = sigma, int(n_rej)
+        st.it, st.stopped = last["executed"], bool(stopped)
+        st.rng = self._rng
+        self._rewind(last["executed"])
+        st.phi, st.flows, st.consts = self._phi, self._fl, self._consts
+        return segs
+
+    def _rewind(self, n_live: int) -> None:
+        """A stopped carry's frozen iterations drew masks the host loop
+        never drew: rewind the open segment's generator past them."""
+        if n_live < len(self._gen_states):
+            self._rng.set_state(self._gen_states[n_live])
 
 
 def run_opt_keys(fn=None) -> frozenset:

@@ -160,7 +160,7 @@ def test_stream_advances_in_parts():
     st = core.init_run_state(net, phi0, method="sparse")
     stream = sgp.FusedStream(net, st)
     stream.advance(4).advance(5)
-    assert stream.finish() is st
+    assert stream.finish() == []          # no rebaseline: one segment, in st
     assert st.costs == hist["costs"] and st.n_rejected == hist["n_rejected"]
     with pytest.raises(RuntimeError):
         stream.advance(1)

@@ -115,6 +115,25 @@
    host's `refeasibilize_sparse` ms after the hub failure, and ms an
    event and an iteration of loop and stream in alternating rounds
    (median and spread).
+   The `robust` phase then runs fault injection, guards and the fleet
+   (`core.faults`, `core.guards`, `core.fleet`) under the fused driver:
+   on sw_1000 (K1 + K3) and ba_10000 (bucketed, K2 + K3), 20 iterations
+   a run, the inert plan (participation 1.0, dropout 0.0, corruption
+   0.0) and a guarded fault-free run each equal the plain run bit for
+   bit, a faulted run (participation 0.5, staleness 2, dropout 0.2) in
+   four chunks equals the whole one (its fault generator too), each
+   run's K1 / K2 and K3 launches are counted through the replays, and
+   plain, faulted and guarded runs are timed in alternating rounds
+   (median and spread, the graphs' launches a replay and pool bytes);
+   participation 0.5 with staleness 3 for 60 iterations ends within 1 %
+   of the synchronous 30 on sw_queue and ba_1000 (the reference's rows;
+   the ratio recorded ungated at sw_1000 and ba_10000); sw_1000 under 20
+   % corruption with guards (checkpoints every 2, 64 retries) rolls back
+   and keeps a finite iterate and costs, with no fewer corruptions than
+   trips, and under 100 % without guards ends poisoned; a fleet of 8
+   sw_1000 lanes (rates, destinations and result ratios perturbed from
+   seed 0) replays one CUDA graph an iteration, each lane bit for bit
+   its solo fused run, timed against the eight solo runs' sum.
 4. Serves Qwen3-0.6B (28 layers), then Mamba2-130M (24 layers), at full
    width through `ServingEngine`, random weights from SERVE_SEED: 12
    requests on 8 slots, max_len 1024, 32 new tokens (Mamba2's prompts
@@ -156,6 +175,7 @@
 
 With `--profile` it also traces one more 20-iteration run of each sparse
 path (both scenarios, default and paper options) under each driver,
+the `robust` phase's plain, faulted and guarded fused runs of each,
 and one bfloat16 serve of each of the three models, with torch.profiler
 and prints the device time by kernel and the device's busy share (not
 part of the checks above).
@@ -691,6 +711,17 @@ def main() -> int:
         path_launches[k] += v
     emit({"phase": "replay", "case": "done", "launches": replay,
           "seconds": time.perf_counter() - t_replay})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ------------------------------------------------------ robust phase
+    t_robust = time.perf_counter()
+    robust = robust_phase(torch, core, ops, dev, nets, nbrs, bks)
+    for k, v in robust.items():
+        path_launches[k] += v
+    emit({"phase": "robust", "case": "done", "launches": robust,
+          "seconds": time.perf_counter() - t_robust})
+    gc.collect()
+    torch.cuda.empty_cache()
     # ------------------------------------- serving Qwen3-0.6B, Mamba2-130M
     serve_counts, serve_bf16 = serve_checks(
         torch, src, SERVE_ARCH, "reference_serve.json", SERVE_REQUESTS,
@@ -738,6 +769,7 @@ def main() -> int:
         for k in sources]})
     if "--profile" in sys.argv[1:]:
         profile_paths(torch, core, ops, nets, nbrs, bks)
+        profile_robust(torch, core, ops, nets, nbrs, bks)
         profile_decode(torch, *serve_bf16, label=f"serve {SERVE_ARCH} "
                        "bfloat16")
         profile_decode(torch, *mamba_bf16, label=f"serve {MAMBA_ARCH} "
@@ -1418,6 +1450,321 @@ def replay_phase(torch, core, ops, dev, src) -> dict:
     return launches
 
 
+# ----------------------------------------------------------- robust phase
+# fault injection, guards and the fleet (`core.faults`, `core.guards`,
+# `core.fleet`) on the sparse main path's two scenarios, fused driver
+ROBUST_ROUNDS = 3          # alternating plain / faulted / guarded rounds
+# every injector armed at a value that changes nothing (staleness cannot
+# be: any k > 0 draws ages in [0, k]); dropout 0.0 solves the marginals
+# outside the propose, as staleness does
+ROBUST_INERT = {"participation_p": 1.0, "dropout_p": 0.0, "corrupt_p": 0.0}
+ROBUST_FAULTS = {"participation_p": 0.5, "staleness_k": 2,
+                 "dropout_p": 0.2}
+# the reference's convergence bar (tests/test_faults.py): p = 0.5 with
+# staleness 3 within 1 % of the synchronous run at twice its budget,
+# gated on its rows, recorded at full size
+CONVERGE_ROWS = (("sw_queue", False, True), ("ba_1000", False, True),
+                 ("sw_1000", False, False), ("ba_10000", True, False))
+CONVERGE_ITERS = 30
+FLEET_B = 8
+
+
+def robust_run(torch, core, ops, net, phi0, nbrs, bks, bucketed,
+               chunks=(N_ITERS,), **init_kw):
+    """One fused run from `phi0` (`init_run_state`, then `run_chunk` for
+    each of `chunks`), the launch counters set to 0 just before it.
+    Returns (state, launch counts, wall seconds)."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    st = core.init_run_state(net, phi0, method="sparse", nbrs=nbrs,
+                             bucketed=bucketed,
+                             buckets=bks if bucketed else None, **init_kw)
+    for n in chunks:
+        core.run_chunk(net, st, n, driver="fused")
+    torch.cuda.synchronize()
+    return st, ops.launches(), time.perf_counter() - t0
+
+
+def same_run(torch, core, a, b) -> bool:
+    """Two runs' costs, rejections and final φ bit for bit."""
+    return (a.costs == b.costs and a.n_rejected == b.n_rejected
+            and all(torch.equal(x, y) for x, y in
+                    zip(core.sgp._fields(a.phi), core.sgp._fields(b.phi))))
+
+
+def finite_phi(torch, core, phi) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in core.sgp._fields(phi))
+
+
+def graph_record(st) -> dict:
+    g = st.graph_stats or {}
+    return {k: g.get(k) for k in ("captures", "replays", "capture_s",
+                                  "pool_bytes", "launches_per_replay")}
+
+
+def robust_paths(torch, core, ops, nets, nbrs, bks, launches) -> None:
+    """Per main-path scenario: the inert plan and a guarded fault-free run
+    bit for bit the plain fused run, a faulted run in four chunks bit for
+    bit the whole one (its fault generator and count too), the K1 / K2
+    and K3 launches of each run, and the plain, faulted and guarded runs
+    timed in alternating rounds."""
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.guards import GuardConfig
+
+    def fault_gen(seed):
+        return torch.Generator(device=nets["sw_1000"].device).manual_seed(
+            seed)
+    for name, bucketed in PATHS:
+        net, nb, bk = nets[name], nbrs[name], bks[name]
+        phi0 = core.spt_phi_sparse(net, nb)
+        rk = "edge_rounds_bucketed" if bucketed else "edge_rounds"
+        args = (torch, core, ops, net, phi0, nb, bk, bucketed)
+        kinds = {
+            "plain": {},
+            "inert": {"fault_plan": FaultPlan(**ROBUST_INERT)},
+            "guarded": {"guards": GuardConfig()},
+            "faulted": {"fault_plan": FaultPlan(**ROBUST_FAULTS)}}
+        runs, counts, secs = {}, {}, {}
+        for kind, kw in kinds.items():
+            seed = {"fault_rng": fault_gen(1)} if "fault_plan" in kw else {}
+            runs[kind], counts[kind], secs[kind] = robust_run(
+                *args, **kw, **seed)
+        chunked, counts["faulted 4 chunks"], _ = robust_run(
+            *args, chunks=(N_ITERS // 4,) * 4, fault_plan=FaultPlan(
+                **ROBUST_FAULTS), fault_rng=fault_gen(1))
+        plain = runs["plain"]
+        require(same_run(torch, core, plain, runs["inert"]),
+                f"{name}: the inert fault plan differs from the plain run")
+        require(runs["inert"].fault_state.n_corrupt.item() == 0,
+                f"{name}: the inert plan corrupted a row")
+        require(same_run(torch, core, plain, runs["guarded"])
+                and runs["guarded"].guard_events == [],
+                f"{name}: the guarded fault-free run differs from the "
+                "plain run")
+        fw, fc = runs["faulted"], chunked
+        require(same_run(torch, core, fw, fc) and fw.it == fc.it
+                and torch.equal(fw.fault_state.gen.get_state(),
+                                fc.fault_state.gen.get_state()),
+                f"{name}: the chunked faulted run differs from the whole "
+                "run")
+        require(not same_run(torch, core, plain, fw),
+                f"{name}: the faults changed nothing")
+        for kind, c in counts.items():
+            require(c[rk] > 0 and c["simplex_project"] == 2 * N_ITERS,
+                    f"{name} {kind}: launches {c}")
+            for k in RECURSION_KERNELS:
+                launches[k] += c[k]
+        times = {k: [] for k in ("plain", "faulted", "guarded")}
+        order = list(times)
+        for r in range(ROBUST_ROUNDS):
+            for kind in order[r:] + order[:r]:
+                kw = dict(kinds[kind])
+                if "fault_plan" in kw:
+                    kw["fault_rng"] = fault_gen(1)
+                st, c, s = robust_run(*args, **kw)
+                times[kind].append(s * 1e3 / N_ITERS)
+                for k in RECURSION_KERNELS:
+                    launches[k] += c[k]
+        emit({"phase": "robust", "case": f"{name} fused", "V": net.V,
+              "S": net.S, "bucketed": bucketed,
+              "faulted_plan": ROBUST_FAULTS, "inert_plan": ROBUST_INERT,
+              "bitwise": {"inert_equals_plain": True,
+                          "guarded_equals_plain": True,
+                          "chunked_equals_whole_faulted": True},
+              "final_cost": {k: runs[k].costs[-1] for k in runs},
+              "rejected": {k: runs[k].n_rejected for k in runs},
+              "launches": {k: {"edge_rounds": c[rk],
+                               "simplex_project": c["simplex_project"]}
+                           for k, c in counts.items()},
+              "graph": {k: graph_record(runs[k]) for k in runs},
+              "first_run_s": secs,
+              "ms_per_iteration": {k: spread(v) for k, v in times.items()}})
+
+
+def robust_convergence(torch, core, ops, dev, nets, nbrs, bks,
+                       launches) -> None:
+    """p = 0.5 participation with staleness 3 for twice the synchronous
+    budget: within 1 % of the synchronous final cost on the reference's
+    rows, the ratio recorded at full size."""
+    from repro_torch.core.faults import FaultPlan
+    for name, bucketed, gated in CONVERGE_ROWS:
+        if name in nets:
+            net, nb, bk = nets[name], nbrs[name], bks[name]
+        else:
+            net = core.make_scenario(core.TABLE_II[name], device=dev)
+            nb, bk = core.build_neighbors(net.adj), None
+        phi0 = core.spt_phi_sparse(net, nb)
+        out = {}
+        for label, n, kw in (
+                ("sync", CONVERGE_ITERS, {}),
+                ("async", 2 * CONVERGE_ITERS, {
+                    "fault_plan": FaultPlan(participation_p=0.5,
+                                            staleness_k=3),
+                    "fault_rng": torch.Generator(device=dev).manual_seed(
+                        2)})):
+            st, c, s = robust_run(torch, core, ops, net, phi0, nb, bk,
+                                  bucketed, chunks=(n,), **kw)
+            for k in RECURSION_KERNELS:
+                launches[k] += c[k]
+            require(all(map(math.isfinite, st.costs)),
+                    f"{name} {label}: a cost is not finite")
+            out[label] = {"iterations": n, "final_cost": st.costs[-1],
+                          "rejected": st.n_rejected, "seconds": s}
+        ratio = out["async"]["final_cost"] / out["sync"]["final_cost"]
+        if gated:
+            require(ratio <= 1.01, f"{name}: participation 0.5, staleness "
+                    f"3 ends {ratio} times the synchronous cost")
+        emit({"phase": "robust", "case": f"{name} convergence",
+              "V": net.V, "S": net.S, "bucketed": bucketed,
+              "gated": gated, "async_over_sync": ratio, **out})
+
+
+def robust_guards(torch, core, ops, nets, nbrs, launches) -> None:
+    """sw_1000 under 20 % corruption with guards: rollbacks and a finite
+    iterate; under 100 % corruption without guards: a poisoned one."""
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.guards import GuardConfig
+    net, nb = nets["sw_1000"], nbrs["sw_1000"]
+    phi0 = core.spt_phi_sparse(net, nb)
+    gen = torch.Generator(device=net.device).manual_seed(3)
+    st, c, s = robust_run(
+        torch, core, ops, net, phi0, nb, None, False, chunks=(30,),
+        fault_plan=FaultPlan(corrupt_p=0.2), fault_rng=gen,
+        guards=GuardConfig(checkpoint_every=2, max_retries=64))
+    events = st.guard_events
+    n_corrupt = st.fault_state.n_corrupt.item()
+    require(any(e.action == "rollback" for e in events),
+            "sw_1000 corrupt_p=0.2 guarded: no rollback")
+    require(finite_phi(torch, core, st.phi)
+            and all(map(math.isfinite, st.costs)),
+            "sw_1000 corrupt_p=0.2 guarded: a non-finite iterate or cost")
+    require(n_corrupt >= len(events), f"sw_1000 guarded: {n_corrupt} "
+            f"corruptions for {len(events)} trips")
+    u, cu, su = robust_run(
+        torch, core, ops, net, phi0, nb, None, False,
+        fault_plan=FaultPlan(corrupt_p=1.0),
+        fault_rng=torch.Generator(device=net.device).manual_seed(0))
+    require(not finite_phi(torch, core, u.phi),
+            "sw_1000 corrupt_p=1.0 unguarded: the iterate is not poisoned")
+    for k in RECURSION_KERNELS:
+        launches[k] += c[k] + cu[k]
+    emit({"phase": "robust", "case": "sw_1000 guarded corruption",
+          "guarded": {"corrupt_p": 0.2, "iterations": 30, "seconds": s,
+                      "n_corrupt": n_corrupt, "trips": len(events),
+                      "actions": sorted({e.action for e in events}),
+                      "sentinels": sorted({e.sentinel for e in events}),
+                      "final_cost": st.costs[-1],
+                      "launches": {k: c[k] for k in RECURSION_KERNELS}},
+          "unguarded": {"corrupt_p": 1.0, "iterations": N_ITERS,
+                        "seconds": su, "poisoned": True,
+                        "stopped": u.stopped,
+                        "n_corrupt": u.fault_state.n_corrupt.item()}})
+
+
+def fleet_nets(torch, core, base, b=FLEET_B, seed=0):
+    """B variants of `base` on its adjacency: rates, destinations and
+    result ratios perturbed from `seed` with numpy, as the reference's
+    fleet test (tests/test_fleet.py) draws them."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    r0, a0 = base.r.cpu().numpy(), base.a.cpu().numpy()
+    dev = base.device
+    out = []
+    for _ in range(b):
+        r = r0 * (0.6 + 0.8 * rng.rand(*r0.shape))
+        dest = rng.randint(0, base.V, size=tuple(base.dest.shape))
+        a = a0 * (0.5 + rng.rand(*a0.shape))
+        out.append(dataclasses.replace(
+            base, r=torch.tensor(r, dtype=torch.float32, device=dev),
+            dest=torch.tensor(dest, dtype=torch.int64, device=dev),
+            a=torch.tensor(a, dtype=torch.float32, device=dev)))
+    return out
+
+
+def robust_fleet(torch, core, ops, nets, nbrs, launches) -> None:
+    """A fleet of FLEET_B sw_1000 lanes: one CUDA graph replay an
+    iteration for all of them, each lane bit for bit its solo fused run,
+    and the fleet's ms an iteration against the eight solo runs' sum in
+    alternating rounds."""
+    base, nb = nets["sw_1000"], nbrs["sw_1000"]
+    fnets = fleet_nets(torch, core, base)
+    phi0s = [core.spt_phi_sparse(n, nb) for n in fnets]
+
+    def fleet_run():
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        st = core.init_fleet_state(fnets, phi0s=phi0s, nbrs=nb)
+        core.run_fleet_chunk(st, N_ITERS)
+        torch.cuda.synchronize()
+        return st, ops.launches(), time.perf_counter() - t0
+
+    def solo_runs():
+        out, total, cs = [], 0.0, dict.fromkeys(RECURSION_KERNELS, 0)
+        for n, p in zip(fnets, phi0s):
+            st, c, s = robust_run(torch, core, ops, n, p, nb, None, False)
+            out.append(st)
+            total += s
+            for k in RECURSION_KERNELS:
+                cs[k] += c[k]
+        return out, cs, total
+
+    fleet, fc, fs = fleet_run()
+    solos, sc, ss = solo_runs()
+    for b, solo in enumerate(solos):
+        require(fleet.costs[b] == solo.costs
+                and all(torch.equal(x, y) for x, y in zip(
+                    core.sgp._fields(fleet.lane_phi(b)),
+                    core.sgp._fields(solo.phi))),
+                f"fleet lane {b}: differs from its solo fused run")
+    g = fleet.graph_stats
+    require(fleet.n_dispatches == N_ITERS and g["captures"] == 1
+            and g["replays"] == N_ITERS - 1,
+            f"fleet: {fleet.n_dispatches} dispatches, graph {g}")
+    want = {"edge_rounds": FLEET_B * (2 + 5 * N_ITERS),
+            "simplex_project": FLEET_B * 2 * N_ITERS}
+    require({k: fc[k] for k in want} == want
+            and {k: sc[k] for k in want} == want,
+            f"fleet launches {fc}, solo {sc}, want {want}")
+    times = {"fleet": [fs * 1e3 / N_ITERS],
+             "solo_sum": [ss * 1e3 / N_ITERS]}
+    counted = [fc, sc]
+    for r in range(ROBUST_ROUNDS - 1):
+        for kind in (("solo_sum", "fleet") if r % 2 == 0
+                     else ("fleet", "solo_sum")):
+            _, c, s = fleet_run() if kind == "fleet" else solo_runs()
+            require({k: c[k] for k in want} == want,
+                    f"fleet round {r} {kind}: launches {c}, want {want}")
+            counted.append(c)
+            times[kind].append(s * 1e3 / N_ITERS)
+    for c in counted:
+        for k in want:
+            launches[k] += c[k]
+    med = {k: spread(v)["median"] for k, v in times.items()}
+    emit({"phase": "robust", "case": f"fleet B={FLEET_B} sw_1000",
+          "bitwise_lanes_equal_solo": True,
+          "n_dispatches": fleet.n_dispatches, "graph": {
+              k: g.get(k) for k in ("captures", "replays", "capture_s",
+                                    "pool_bytes")},
+          "launches_per_replay": g.get("launches_per_replay"),
+          "launches": {"fleet": {k: fc[k] for k in want},
+                       "solo": {k: sc[k] for k in want}},
+          "final_costs": [c[-1] for c in fleet.costs],
+          "ms_per_iteration": {k: spread(v) for k, v in times.items()},
+          "fleet_over_solo_sum": med["fleet"] / med["solo_sum"]})
+
+
+def robust_phase(torch, core, ops, dev, nets, nbrs, bks) -> dict:
+    """The `robust` phase.  Returns the K1-K3 launches of its runs."""
+    launches = dict.fromkeys(RECURSION_KERNELS, 0)
+    robust_paths(torch, core, ops, nets, nbrs, bks, launches)
+    robust_convergence(torch, core, ops, dev, nets, nbrs, bks, launches)
+    robust_guards(torch, core, ops, nets, nbrs, launches)
+    robust_fleet(torch, core, ops, nets, nbrs, launches)
+    return launches
+
+
 def stacked_check(torch, label, w, b, solve):
     """The stacked pair of fixed points (`w`, `b`: two problems along the
     task axis) against each half solved alone: equal bit for bit."""
@@ -1489,6 +1836,39 @@ def profile_paths(torch, core, ops, nets, nbrs, bks, top=12):
                                        if v["calls"]},
                       "top": [{"kernel": k[:80], "ms": ms, "calls": n}
                               for k, ms, n in rows[:top]]})
+
+
+def profile_robust(torch, core, ops, nets, nbrs, bks, top=12):
+    """Device time by kernel name and the busy share over one traced
+    20-iteration fused run of each main-path scenario, plain, faulted
+    and guarded (the `robust` phase's plans)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.guards import GuardConfig
+    for name, bucketed in PATHS:
+        net = nets[name]
+        args = (torch, core, ops, net, core.spt_phi_sparse(net, nbrs[name]),
+                nbrs[name], bks[name], bucketed)
+        for kind, kw in (("plain", {}),
+                         ("faulted", {"fault_plan": FaultPlan(
+                             **ROBUST_FAULTS)}),
+                         ("guarded", {"guards": GuardConfig()})):
+            robust_run(*args, **kw)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, _, seconds = robust_run(*args, **kw)
+            rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                    for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA")
+                    and e.self_device_time_total > 0
+                    and e.key != "Activity Buffer Request"]
+            device_ms = sum(r[1] for r in rows)
+            rows.sort(key=lambda r: -r[1])
+            emit({"phase": "profile", "scenario": name, "robust": kind,
+                  "wall_ms": seconds * 1e3, "device_ms": device_ms,
+                  "busy_share": device_ms / (seconds * 1e3),
+                  "top": [{"kernel": k[:80], "ms": ms, "calls": n}
+                          for k, ms, n in rows[:top]]})
 
 
 # the port's sparse-path kernels as the profiler names them (each

@@ -1,5 +1,5 @@
-"""Carry a network, an iterate, a churn schedule and task pool, LM
-weights and LM state across from numpy arrays.
+"""Carry a network, an iterate, a churn schedule and task pool, a fault
+and a guard carry, LM weights and LM state across from numpy arrays.
 
 The port never sees another framework's types: a caller hands over the
 fields as numpy arrays (`np.asarray(...)` of whatever holds them) and
@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from .core.costs import Cost
-from .core.network import CECNetwork, Phi, PhiSparse, resolve_device
+from .core.network import (CECNetwork, FlowsCarry, Phi, PhiSparse,
+                           resolve_device)
 
 
 def _f32(x, dev):
@@ -64,6 +65,46 @@ def phi_sparse_from_numpy(data, local, result, device=None) -> PhiSparse:
 def phi_sparse_to_numpy(phi: PhiSparse) -> tuple:
     """(data, local, result) as numpy arrays."""
     return tuple(t.cpu().numpy() for t in (phi.data, phi.local, phi.result))
+
+
+def fault_state_from_numpy(ring, held, n_corrupt, seed: int = 0,
+                           device=None):
+    """A `faults.FaultState` on `device` (None: the card): `ring` and
+    `held` are None or the four marginal arrays (rho_data, rho_result,
+    delta_data, delta_result), stacked [k+1, ...] in the ring; the fault
+    generator is seeded with `seed`."""
+    from .core.faults import FaultState
+    dev = resolve_device(device)
+
+    def four(x):
+        return None if x is None else tuple(_f32(a, dev) for a in x)
+    return FaultState(
+        gen=torch.Generator(device=dev).manual_seed(seed), ring=four(ring),
+        held=four(held),
+        n_corrupt=torch.tensor(int(n_corrupt), dtype=torch.int32,
+                               device=dev))
+
+
+def guard_state_from_numpy(ckpt_phi, ckpt_fl, ckpt_cost, ckpt_sigma, valid,
+                           ptr, window, wptr, retries, n_trips,
+                           device=None):
+    """A `guards.GuardState` on `device` (None: the card).  `ckpt_phi` is
+    the ring's stacked (data, local, result) of an edge-slot iterate, or
+    (data, result) of a dense one; `ckpt_fl` the stacked (t_data,
+    t_result, F, G); the counters are integers."""
+    from .core.guards import GuardState
+    dev = resolve_device(device)
+
+    def i32(v):
+        return torch.tensor(int(v), dtype=torch.int32, device=dev)
+    phi_cls = PhiSparse if len(ckpt_phi) == 3 else Phi
+    return GuardState(
+        ckpt_phi=phi_cls(*(_f32(a, dev) for a in ckpt_phi)),
+        ckpt_fl=FlowsCarry(*(_f32(a, dev) for a in ckpt_fl)),
+        ckpt_cost=_f32(ckpt_cost, dev), ckpt_sigma=_f32(ckpt_sigma, dev),
+        valid=torch.as_tensor(np.asarray(valid, dtype=bool), device=dev),
+        ptr=i32(ptr), window=_f32(window, dev), wptr=i32(wptr),
+        retries=i32(retries), n_trips=i32(n_trips))
 
 
 def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:

@@ -28,6 +28,12 @@ from .events import (AdmissionEvent, ChurnSchedule, ChurnState, DestRedraw,
                      TaskPool, event_kind, random_schedule)
 from .replay import (EventRecord, ReplayEngine, check_feasible,
                      check_invariants, iters_or_budget, iters_to_target)
+from .faults import (FaultPlan, FaultState, fault_state_specs,
+                     init_fault_state)
+from .guards import GuardConfig, GuardEvent, GuardState, init_guard_state
+from .fleet import (FleetCache, FleetState, fleet_cache_key,
+                    init_fleet_state, run_fleet, run_fleet_chunk,
+                    stack_fleet)
 from .baselines import run_all, run_lcor, run_lpr, run_spoo
 from .optimality import (flow_domain_optimum, marginals_vs_autodiff,
                          theorem1_residual)
@@ -59,7 +65,10 @@ __all__ = [
     "TaskPool", "event_kind", "random_schedule", "EventRecord",
     "ReplayEngine", "check_feasible", "check_invariants",
     "iters_or_budget", "iters_to_target", "run_all", "run_lcor", "run_lpr",
-    "run_spoo",
+    "run_spoo", "FaultPlan", "FaultState", "fault_state_specs",
+    "init_fault_state", "GuardConfig", "GuardEvent", "GuardState",
+    "init_guard_state", "FleetCache", "FleetState", "fleet_cache_key",
+    "init_fleet_state", "run_fleet", "run_fleet_chunk", "stack_fleet",
     "flow_domain_optimum", "marginals_vs_autodiff", "theorem1_residual",
     "topologies",
 ]

@@ -30,9 +30,13 @@ network's device and never draws from it.  Segment k (k = 0 at
 construction, one more at every event) draws its row masks from a
 generator on the same device seeded with
 `SeedSequence([rng.initial_seed(), k])` (`segment_seed`), in the event
-loop and in the stream alike.  The reference splits `jax.random` keys,
-which torch cannot replay, so asynchronous replays agree with it only
-in distribution (not tested).
+loop and in the stream alike.  A fault plan's generator is derived the
+same way from `fault_rng` (default seed 0) on a stream of its own,
+`SeedSequence([fault_rng.initial_seed(), k, 1])`, so each segment draws
+an independent fault stream and the stream stays the event loop bit for
+bit.  The reference splits `jax.random` keys, which torch cannot
+replay, so asynchronous and faulted replays agree with it only in
+distribution (not tested).
 """
 from __future__ import annotations
 
@@ -136,11 +140,12 @@ def iters_or_budget(iters: int, budget: int) -> int:
     return budget + 1 if iters < 0 else iters
 
 
-def segment_seed(seed: int, k: int) -> int:
-    """The seed of segment k's Theorem-2 generator, from the engine
-    generator's `initial_seed()`."""
-    hi, lo = np.random.SeedSequence([int(seed), int(k)]).generate_state(
-        2, np.uint32)
+def segment_seed(seed: int, k: int, stream: int = 0) -> int:
+    """The seed of segment k's generator, from the engine generator's
+    `initial_seed()`: the Theorem-2 masks' (stream 0) or the faults'
+    (stream 1)."""
+    entropy = [int(seed), int(k)] + ([int(stream)] if stream else [])
+    hi, lo = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     return (int(hi) << 32 | int(lo)) & ((1 << 63) - 1)
 
 
@@ -168,11 +173,16 @@ class ReplayEngine:
 
     driver="run" resumes `sgp.run_chunk` between events (`loop_driver`
     "fused", the default, or "host"; `run_opts` go to every chunk).
-    driver="distributed", `mesh`, `fault_plan`, `fault_rng` and `guards`
-    keep the reference's signature and raise NotImplementedError: they
-    come with the ports of `core/distributed.py` (P12) and of
-    `core/faults.py` / `core/guards.py` (P9).  `engine_impl` must be
-    None: the port picks each kernel by its tensors' device.
+    driver="distributed" and `mesh` keep the reference's signature and
+    raise NotImplementedError: they come with the port of
+    `core/distributed.py` (P12).  `engine_impl` must be None: the port
+    picks each kernel by its tensors' device.
+
+    `fault_plan`, `fault_rng` and `guards` (`core.faults`, `core.guards`)
+    thread the robustness layer through every warm segment: each
+    segment's fresh driver state draws from its own fault generator
+    (module docstring) and anchors a fresh guard carry at the repaired
+    iterate; `guard_log` gathers the trips of every segment.
 
     bucketed=True runs every recursion over degree buckets (rebuilt on
     topology events).  `pool` (a `TaskPool`, `net` padded to its S_cap)
@@ -201,11 +211,6 @@ class ReplayEngine:
             raise NotImplementedError(
                 "driver='distributed' and mesh= come with the port of "
                 "core/distributed.py (P12)")
-        if fault_plan is not None or fault_rng is not None \
-                or guards is not None:
-            raise NotImplementedError(
-                "fault_plan, fault_rng and guards come with the port of "
-                "core/faults.py and core/guards.py (P9)")
         if engine_impl is not None:
             raise ValueError("engine_impl must be None: the port picks "
                              "each kernel by its tensors' device")
@@ -226,9 +231,10 @@ class ReplayEngine:
                 "run_opts={'async_frac': ...} needs ReplayEngine(rng="
                 "torch.Generator(...)): each segment draws its row masks "
                 "from a generator derived from it")
-        if rng is not None and rng.device.type != net.device.type:
-            raise ValueError(f"the generator lies on {rng.device}, the "
-                             f"network on {net.device}")
+        for gen in (rng, fault_rng):
+            if gen is not None and gen.device.type != net.device.type:
+                raise ValueError(f"the generator lies on {gen.device}, "
+                                 f"the network on {net.device}")
         self.pool = pool
         self.admission_log: list = []        # drained, it-stamped pool log
         self.churn = ChurnState(net, pool=pool)
@@ -241,6 +247,12 @@ class ReplayEngine:
         self.invariant_loop_tasks = invariant_loop_tasks
         self._rng = rng
         self._rng_segments = 0
+        self.fault_plan = fault_plan
+        self.guards = guards
+        self._fault_seed = (0 if fault_rng is None
+                            else fault_rng.initial_seed())
+        self._fault_segments = 0
+        self._guard_log: list = []           # closed segments' trips
         self._spt_cache: dict = {}           # dest key -> SPT result rows
         self.spt_cache_hits = 0
         self.graph_log: list = []
@@ -268,6 +280,14 @@ class ReplayEngine:
         self._rng_segments += 1
         return gen
 
+    def _segment_fault_rng(self) -> torch.Generator:
+        """The next segment's fault generator (module docstring)."""
+        gen = torch.Generator(device=self.net.device)
+        gen.manual_seed(segment_seed(self._fault_seed, self._fault_segments,
+                                     stream=1))
+        self._fault_segments += 1
+        return gen
+
     def _refresh_active(self) -> None:
         """Upload the pool's mask (`TaskPool.active_for_engine`: None is
         the fixed-S pass-through)."""
@@ -289,7 +309,10 @@ class ReplayEngine:
             self.net, phi_sp, min_scale=self.min_scale, method="sparse",
             nbrs=self.nbrs, bucketed=self.bucketed, buckets=self.buckets,
             rng=None if self._rng is None else self._segment_rng(),
-            active=self._active_dev)
+            fault_plan=self.fault_plan,
+            fault_rng=(None if self.fault_plan is None
+                       else self._segment_fault_rng()),
+            guards=self.guards, active=self._active_dev)
 
     @property
     def phi(self) -> PhiSparse:
@@ -307,8 +330,9 @@ class ReplayEngine:
 
     @property
     def guard_log(self) -> list:
-        """Guard events (none until guards are ported, P9)."""
-        return []
+        """Every `GuardEvent` tripped so far, across segments (each
+        numbered within its segment, as its fresh driver state counts)."""
+        return self._guard_log + list(self.state.guard_events)
 
     def _log_graph(self, stats) -> None:
         if stats:
@@ -374,6 +398,7 @@ class ReplayEngine:
             self._spt_cache.clear()
         self.net = net_new
         self.cost_log.extend(self.state.costs)
+        self._guard_log.extend(self.state.guard_events)
         self._init_state(phi)                 # warm re-baseline
         self._drain_admissions()
         if self.invariant_checks:
@@ -444,6 +469,7 @@ class ReplayEngine:
         if not window:
             return t_prev
         entering_costs = list(self.state.costs)
+        entering_guards = list(self.state.guard_events)
         opts = {k: v for k, v in self.run_opts.items() if k != "driver"}
         stream = FusedStream(self.net, self.state, **opts)
         pending = []
@@ -478,6 +504,8 @@ class ReplayEngine:
                     return p if _act is None else mask_inactive_slots(p, _act)
             stream.rebaseline(
                 net_new, repair=repair,
+                fault_rng=(self._segment_fault_rng()
+                           if self.fault_plan is not None else None),
                 rng=self._segment_rng() if self._rng is not None else None,
                 active=self._active_dev if kind == "task" else None)
             self.net = net_new
@@ -485,7 +513,8 @@ class ReplayEngine:
             t_prev = t_ev
         segments = stream.finish()
         self._log_graph(self.state.graph_stats)
-        self._fold_stream(segments, pending, entering_costs)
+        self._fold_stream(segments, pending, entering_costs,
+                          entering_guards)
         self._drain_admissions()
         if self.invariant_checks:
             # at the window's end: a per-event check would read the device
@@ -496,10 +525,10 @@ class ReplayEngine:
         return t_prev
 
     def _fold_stream(self, segments: list, pending: list,
-                     entering_costs: list) -> None:
+                     entering_costs: list, entering_guards: list) -> None:
         """`iterate` and `apply_event`'s bookkeeping from the stream's
         segments: segment k closes with event k, the last stays open in
-        `self.state`."""
+        `self.state` (its guard trips in `state.guard_events`)."""
         for k, (event, kind) in enumerate(pending):
             seg = segments[k]
             self.total_iters += seg["executed"]
@@ -509,6 +538,8 @@ class ReplayEngine:
             baseline = (entering_costs if k == 0
                         else [segments[k - 1]["cost_after"]])
             self.cost_log.extend(baseline + seg["accepted"])
+            self._guard_log.extend((entering_guards if k == 0 else [])
+                                   + seg["guard_events"])
             self.records.append(EventRecord(
                 it=self.total_iters, event=event, kind=kind,
                 cost_before=seg["cost_before"],

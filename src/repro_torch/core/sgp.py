@@ -30,7 +30,11 @@ the per-iteration loop that reads each candidate's cost back to decide.
 `driver="fused"` (the default without a callback) keeps the accept,
 σ and tol decisions on the device as branchless selects and reads the
 chunk's costs back once at its end; on the card its iteration is
-captured once into a CUDA graph and replayed.
+captured once into a CUDA graph and replayed.  Fault injection
+(`core.faults`) and the guards' sentinels and rollback (`core.guards`)
+ride the fused driver's carry (`fault_plan`, `fault_rng` and `guards` of
+`run` and `init_run_state`).  The task-sharded driver of the reference's
+`core/distributed.py` comes with its port (P12).
 """
 from __future__ import annotations
 
@@ -44,6 +48,8 @@ import torch
 
 from ..kernels import ops as kernel_ops
 from ..kernels.ref import simplex_project_ref
+from . import faults as _faults
+from .faults import FaultState, init_fault_state
 from .marginals import BIG, Marginals, compute_marginals
 from .network import (CECNetwork, FlowsCarry, Neighbors, Phi, PhiSparse,
                       _phi_edge_views, build_buckets, build_neighbors,
@@ -268,7 +274,8 @@ def _sgp_propose_impl(net: CECNetwork, phi, fl: FlowsCarry,
                       method: str = "dense", use_blocking: bool = True,
                       scaling: str = "adaptive", sigma=1.0,
                       kappa: float = 0.0,
-                      nbrs: Optional[Neighbors] = None, buckets=None):
+                      nbrs: Optional[Neighbors] = None, buckets=None,
+                      mg: Optional[Marginals] = None):
     """The projection half of one iteration: from the iterate and its
     carried flows (`fl.F` on the slots under the sparse engine, dense
     under the others), the marginals, permitted sets, Eq. 16 scaling
@@ -279,8 +286,10 @@ def _sgp_propose_impl(net: CECNetwork, phi, fl: FlowsCarry,
     dense [S, V, V+1] / [S, V, V] layout, ANDed into the permitted sets.
     use_blocking=False skips the taint protocol.  `sigma` is σ, a
     float32 scalar on the net's device (the drivers' form) or a number.
-    A dense `Phi` comes back dense, a `PhiSparse` in slots.  Returns
-    (phi_new, marginals)."""
+    `mg` overrides the marginals the step would solve (the fault layer's
+    stale or held broadcasts: the blocked sets then see the same values
+    the projection does).  A dense `Phi` comes back dense, a `PhiSparse`
+    in slots.  Returns (phi_new, marginals)."""
     check_method(method)
     sparse = method == "sparse"
     native = isinstance(phi, PhiSparse)
@@ -288,8 +297,9 @@ def _sgp_propose_impl(net: CECNetwork, phi, fl: FlowsCarry,
         raise ValueError("PhiSparse iterates require method='sparse'")
     if sparse and nbrs is None:
         raise ValueError("method='sparse' needs nbrs=build_neighbors(adj)")
-    mg = compute_marginals(net, phi, fl, method, nbrs=nbrs, slot_F=sparse,
-                           buckets=buckets)
+    if mg is None:
+        mg = compute_marginals(net, phi, fl, method, nbrs=nbrs,
+                               slot_F=sparse, buckets=buckets)
     S, V = net.S, net.V
     is_dest = _is_dest(net)
     # row layout: edge slots [S, V, Dmax(+1)] when sparse, else dense
@@ -417,16 +427,36 @@ def _sgp_step_flows_impl(net: CECNetwork, phi, fl: FlowsCarry,
                          scaling: str = "adaptive", sigma=1.0,
                          kappa: float = 0.0,
                          nbrs: Optional[Neighbors] = None, buckets=None,
-                         with_aux: bool = False,
+                         with_aux: bool = False, fault_plan=None,
+                         fault_state: Optional[FaultState] = None,
+                         fault_draws=None,
                          active: Optional[torch.Tensor] = None):
     """One driver iteration: propose from the carried flows, then
     measure the candidate.  Both drivers run exactly this.
+
+    `fault_plan` and `fault_state` (`core.faults`) arm the injectors:
+    stale or held broadcasts feed the propose through `mg=`, the
+    participation mask folds into the Theorem-2 row masks, and
+    corruption poisons the candidate after its flows and cost were
+    measured; `fault_draws` are the iteration's draws
+    (`faults.draw_faults`), required with a plan.  The return then gains
+    the new fault state: (phi_new, carry_new, cost_new, fault_state').
 
     `active` ([S] bool, a task pool's mask) is folded into the Theorem-2
     row masks, so inactive slots' φ rows are kept bit for bit; their r
     and a are zero, so their flows and cost are exactly zero with no
     mask on the measurement.  None adds no operation at all.  Returns
     (phi_new, carry_new, cost_new[, marginals of `phi` if with_aux])."""
+    faulted = fault_plan is not None and fault_state is not None
+    mg_in = None
+    if faulted:
+        mg_in, pmask, fs_mid = _faults.fault_step_begin(
+            net, phi, fl, fault_state, fault_plan, fault_draws, method,
+            nbrs, buckets)
+        if pmask is not None:
+            mask_data = pmask if mask_data is None else mask_data & pmask
+            mask_result = (pmask if mask_result is None
+                           else mask_result & pmask)
     if active is not None:
         am = active[:, None]                            # [S, 1] -> [S, V]
         mask_data = am if mask_data is None else mask_data & am
@@ -436,9 +466,13 @@ def _sgp_step_flows_impl(net: CECNetwork, phi, fl: FlowsCarry,
         mask_data=mask_data, mask_result=mask_result,
         allowed_data=allowed_data, allowed_result=allowed_result,
         method=method, use_blocking=use_blocking, scaling=scaling,
-        sigma=sigma, kappa=kappa, nbrs=nbrs, buckets=buckets)
+        sigma=sigma, kappa=kappa, nbrs=nbrs, buckets=buckets, mg=mg_in)
     carry_new, cost_new = flows_carry_and_cost(net, phi_new, method,
                                                nbrs=nbrs, buckets=buckets)
+    if faulted:
+        phi_new, fs_new = _faults.fault_step_end(
+            net, phi_new, fault_draws, fault_plan, fs_mid, nbrs=nbrs)
+        return phi_new, carry_new, cost_new, fs_new
     if with_aux:
         return phi_new, carry_new, cost_new, mg
     return phi_new, carry_new, cost_new
@@ -515,7 +549,10 @@ class RunState:
     network's device, that draws the Theorem-2 row masks; `active` is a
     task pool's [S] bool mask (None: every slot live, and no mask
     operation in the step); `graph_stats` is what the fused driver's
-    last chunk measured of its CUDA graph (None on the CPU)."""
+    last chunk measured of its CUDA graph (None on the CPU).  The fault
+    plan and state (`core.faults`) and the guard policy and state
+    (`core.guards`) ride the fused driver's carry; `guard_events` are
+    the trips so far."""
     phi: object                     # Phi | PhiSparse
     consts: SGPConsts
     nbrs: Optional[Neighbors]       # sparse engine only
@@ -530,6 +567,11 @@ class RunState:
     flows: Optional[FlowsCarry] = None   # flows of `phi`
     buckets: object = None          # NeighborBuckets (bucketed mode)
     graph_stats: Optional[dict] = None
+    fault_plan: object = None       # faults.FaultPlan
+    fault_state: Optional[FaultState] = None
+    guard_cfg: object = None        # guards.GuardConfig
+    guard_state: object = None      # guards.GuardState
+    guard_events: list = dataclasses.field(default_factory=list)
     active: Optional[torch.Tensor] = None   # a task pool's [S] bool mask
 
 
@@ -537,14 +579,21 @@ def init_run_state(net: CECNetwork, phi0, min_scale: float = 0.05,
                    method: str = "dense",
                    rng: Optional[torch.Generator] = None,
                    nbrs: Optional[Neighbors] = None, bucketed: bool = False,
-                   buckets=None,
+                   buckets=None, fault_plan=None,
+                   fault_rng: Optional[torch.Generator] = None,
+                   guards=None,
                    active: Optional[torch.Tensor] = None) -> RunState:
     """Under method="sparse", build (or accept) the neighbour lists and,
     with bucketed=True, the degree buckets, and convert a dense φ⁰ to
     slots; the dense and broadcast engines iterate the dense `Phi`.
     Evaluate φ⁰'s flows and cost T⁰ (one solve, both carried) and the
-    Eq. 16 constants.  `active` ([S] bool on the net's device) threads a
-    task pool's mask through every step (`_sgp_step_flows_impl`)."""
+    Eq. 16 constants.  `fault_plan` (`faults.FaultPlan`) arms the fault
+    injectors, drawing from `fault_rng` (a torch.Generator on the net's
+    device, apart from the Theorem-2 `rng`; default seed 0); `guards`
+    (`guards.GuardConfig`) arms the sentinels and rollback, anchored at
+    φ⁰.  Either sends `run_chunk` to the fused driver.  `active` ([S]
+    bool on the net's device) threads a task pool's mask through every
+    step (`_sgp_step_flows_impl`)."""
     check_method(method)
     if rng is not None and rng.device.type != net.device.type:
         raise ValueError(f"the driver's generator lies on {rng.device}, "
@@ -559,10 +608,20 @@ def init_run_state(net: CECNetwork, phi0, min_scale: float = 0.05,
         nbrs = buckets = None
     fl0, T0 = flows_carry_and_cost(net, phi0, method, nbrs=nbrs,
                                    buckets=buckets)
+    fault_state = guard_state = None
+    if fault_plan is not None:
+        fault_state = init_fault_state(net, phi0, fl0, fault_plan,
+                                       rng=fault_rng, method=method,
+                                       nbrs=nbrs, buckets=buckets)
+    if guards is not None:
+        from .guards import init_guard_state   # guards imports sgp
+        guard_state = init_guard_state(phi0, fl0, T0, guards)
     return RunState(phi=phi0, consts=make_consts(net, T0, min_scale),
                     nbrs=nbrs, method=method, costs=[float(T0)],
                     min_scale=min_scale, rng=rng, flows=fl0,
-                    buckets=buckets, active=active)
+                    buckets=buckets, fault_plan=fault_plan,
+                    fault_state=fault_state, guard_cfg=guards,
+                    guard_state=guard_state, active=active)
 
 
 def _async_masks(gen: torch.Generator, net: CECNetwork, async_frac: float):
@@ -646,8 +705,10 @@ def run_chunk(net: CECNetwork, state: RunState, n_iters: int,
     decides on the host; "fused" decides on the device and reads the
     chunk's costs back once (`FusedStream`); None picks "fused" unless a
     `callback(it, phi, aux, accepted)` needs the host loop.  Both walk
-    the same costs, σ, generator draws and φ bit for bit.  The tol exit
-    fires only after an accepted step."""
+    the same costs, σ, generator draws and φ bit for bit.  A state with
+    a fault plan or guards runs the fused driver (their carries live
+    there) and refuses a callback.  The tol exit fires only after an
+    accepted step."""
     if driver is None:
         driver = "host" if callback is not None else "fused"
     if driver not in ("host", "fused"):
@@ -660,6 +721,12 @@ def run_chunk(net: CECNetwork, state: RunState, n_iters: int,
         raise ValueError("async_frac > 0 needs a driver generator: pass "
                          "rng=torch.Generator(device) to init_run_state "
                          "or run")
+    if state.fault_plan is not None or state.guard_cfg is not None:
+        if callback is not None:
+            raise ValueError("fault injection and guards run the fused "
+                             "driver; per-iteration callbacks need a "
+                             "fault-free host loop")
+        driver = "fused"
     if driver == "fused" and callback is not None:
         raise ValueError("driver='fused' runs the whole chunk on the "
                          "device; per-iteration callbacks need "
@@ -749,52 +816,135 @@ def _side_stream(dev: torch.device):
     return _SIDE_STREAMS[key], _GRAPH_POOLS[key]
 
 
-def _fold_fused_histories(state: RunState, sigma, n_rej, stopped,
-                          hist: torch.Tensor):
-    """The fused chunk's single device-to-host read and its bookkeeping:
-    `hist` [n, 3] holds each dispatched iteration's (candidate cost,
-    take, live).  Executed-and-accepted costs join `state.costs`, `it`
-    advances by the executed iterations.  Returns the number executed."""
-    n = hist.shape[0]
-    packed = torch.cat([hist.reshape(-1),
-                        torch.stack([sigma.float(), n_rej.float(),
-                                     stopped.float()])]).cpu().tolist()
-    rows = [packed[3 * i:3 * i + 3] for i in range(n)]
-    state.costs.extend(c for c, take, live in rows if live and take)
-    n_live = sum(1 for _, _, live in rows if live)
-    state.sigma = packed[-3]
-    state.n_rejected += int(packed[-2])
-    state.it += n_live
-    state.stopped = bool(packed[-1])
-    return n_live
+def _render_guard_events(rows, it0: int) -> list:
+    """The `GuardEvent`s of a segment's history rows (cost, take, live,
+    code, rolled, restored cost), numbered from `it0`."""
+    from .guards import SENTINEL_NAMES, GuardEvent
+    return [GuardEvent(it=it0 + i, sentinel=SENTINEL_NAMES[int(code)],
+                       action="rollback" if rolled else "stop", cost=cost,
+                       restored_cost=ck if rolled else None)
+            for i, (cost, _, live, code, rolled, ck) in enumerate(rows)
+            if live and code > 0]
+
+
+class _Graphed:
+    """Runs `fn`, one driver iteration on buffers it owns, once a
+    dispatch.  On the CPU it runs eagerly.  On the card the first call
+    runs eagerly on a side stream (it builds the kernels and their
+    cluster plans), the second is captured into a `torch.cuda.CUDAGraph`
+    and that graph is replayed from then on; the kernels' launch
+    counters tick once a replay (`kernels.ops.add_launches`).  If the
+    capture fails the run raises; there is no second path.  `stats`
+    records the warm-up, the captures and the replays."""
+
+    def __init__(self, fn, device: torch.device):
+        self.fn, self.device = fn, device
+        self.graph = None
+        self.dispatched = 0
+        self.per_replay: dict = {}
+        self.stats = {"graph": device.type == "cuda", "warmup_s": None,
+                      "capture_s": None, "captures": 0, "pool_bytes": None,
+                      "replays": 0, "launches_per_replay": None}
+
+    def reset(self) -> None:
+        """The next call captures a new graph (the iteration changed)."""
+        self.graph, self.dispatched = None, 0
+
+    def __call__(self) -> None:
+        if self.device.type != "cuda":
+            self.fn()
+        elif self.dispatched == 0:
+            t0 = time.perf_counter()
+            side, _ = _side_stream(self.device)
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.fn()
+            torch.cuda.current_stream().wait_stream(side)
+            self.stats["warmup_s"] = time.perf_counter() - t0
+        else:
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            kernel_ops.add_launches(self.per_replay)
+            self.stats["replays"] += 1
+        self.dispatched += 1
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        reserved = torch.cuda.memory_reserved()
+        before = kernel_ops.launches()
+        graph = torch.cuda.CUDAGraph()
+        side, pool = _side_stream(self.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=pool)
+            try:
+                self.fn()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+        after = kernel_ops.launches()
+        # capturing launches nothing: the counts ticked are one replay's
+        self.per_replay = {k: after[k] - before[k] for k in after
+                           if after[k] != before[k]}
+        kernel_ops.add_launches(self.per_replay, -1)
+        self.graph = _LAST_GRAPHS[_device_key(self.device)] = graph
+        self.stats["captures"] += 1
+        self.stats.update(
+            capture_s=(self.stats["capture_s"] or 0.0)
+            + time.perf_counter() - t0,
+            pool_bytes=torch.cuda.memory_reserved() - reserved,
+            launches_per_replay=dict(self.per_replay))
+
+
+def _copy_into(dst, src) -> None:
+    """A dataclass of tensors (or a tuple of them) copied into another's
+    buffers, field by field (a field that is its own source is left)."""
+    dsts = dst if isinstance(dst, tuple) else _fields(dst)
+    srcs = src if isinstance(src, tuple) else _fields(src)
+    for d, s in zip(dsts, srcs):
+        if s is not d:
+            d.copy_(s)
+
+
+def _fault_tensors(fs: FaultState) -> tuple:
+    """The device tensors of a fault carry: ring, hold, count."""
+    return tuple(fs.ring or ()) + tuple(fs.held or ()) + (fs.n_corrupt,)
+
+
+# the guard carry's fields the update returns anew (the ring is written
+# in place)
+_GUARD_SCALARS = ("ptr", "window", "wptr", "retries", "n_trips")
 
 
 class FusedStream:
     """The fused driver: the accept/reject loop with no host read inside.
 
     The carry (φ, flows, consts, σ, the last accepted cost, counts,
-    `stopped`) lives in device tensors that each iteration updates in
-    place, as do the network fields a same-graph event changes (r, dest,
-    a, w, task_type, the compute costs) and a task pool's `active` mask:
-    the stream owns copies of all of them.  Each iteration's candidate
-    cost and take/live flags land in a device history that `finish`
-    reads back once.  A stopped carry keeps dispatching frozen no-ops
-    whose outputs are discarded.
+    `stopped`, and the fault and guard carries) lives in device tensors
+    that each iteration updates in place, as do the network fields a
+    same-graph event changes (r, dest, a, w, task_type, the compute
+    costs) and a task pool's `active` mask: the stream owns copies of
+    all of them.  Each iteration's candidate cost and take/live flags
+    (and, guarded, its sentinel code, rollback flag and restored cost)
+    land in a device history that `finish` reads back once.  A stopped
+    carry keeps dispatching frozen no-ops whose outputs are discarded;
+    it freezes the fault carry too.
 
-    On the card the first iteration runs eagerly on a side stream (it
-    builds the kernels and their cluster plans), the second is captured
-    into a `torch.cuda.CUDAGraph`, and that graph is replayed for every
-    iteration after the first.  The paper-scaling refresh, the Theorem-2
-    masks and `rebaseline` are eager ops between replays, writing the
-    buffers the graph reads.  The kernels' launch counters tick once a
-    replay (`kernels.ops.add_launches`).  If the capture fails the run
-    raises; there is no second path.  `stats` records the captures.
+    On the card the iteration is captured once into a CUDA graph and
+    replayed (`_Graphed`).  The paper-scaling refresh, the Theorem-2
+    masks, the fault draws (`faults.draw_faults`), the guards'
+    checkpoint flag and `rebaseline` are eager ops between replays,
+    writing the buffers the graph reads; each generator's state before
+    each draw is kept, so a stopped carry rewinds both generators past
+    the draws of its frozen iterations.  `stats` records the captures.
 
     `rebaseline` folds a same-graph churn event into the carry as the
     replay engine's event loop builds a fresh `RunState` (the same
-    repair, flows, T⁰ and constants, σ and the counts reset), with no
-    host read, so one stream carries a whole window of events and stays
-    bit for bit the event loop (`core.replay`)."""
+    repair, flows, T⁰ and constants, σ and the counts reset, the fault
+    state re-initialised and the guard carry re-anchored), with no host
+    read, so one stream carries a whole window of events and stays bit
+    for bit the event loop (`core.replay`)."""
 
     def __init__(self, net: CECNetwork, state: RunState, fl=None, *,
                  variant: str = "sgp", beta: float = 1.0,
@@ -842,115 +992,109 @@ class FusedStream:
         if async_frac > 0.0:
             self._masks = tuple(torch.ones((net.S, net.V), dtype=torch.bool,
                                            device=dev) for _ in range(2))
-        self._rec = torch.zeros(3, dtype=torch.float32, device=dev)
+        # the fault carry and the buffers of an iteration's draws
+        self._plan = self._fs = self._draws = None
+        if state.fault_plan is not None and state.fault_state is not None:
+            fs = state.fault_state
+            self._plan = state.fault_plan
+            self._fs = FaultState(
+                gen=fs.gen,
+                ring=(None if fs.ring is None
+                      else tuple(t.clone() for t in fs.ring)),
+                held=(None if fs.held is None
+                      else tuple(t.clone() for t in fs.held)),
+                n_corrupt=fs.n_corrupt.clone())
+            self._draws = _faults.draw_buffers(net.V, dev)
+        self._fgen_states: list = []  # the fault generator before each draw
+        # the guard carry and the checkpoint flag of the next replay
+        self._gs = self._do_ckpt = None
+        if state.guard_cfg is not None and state.guard_state is not None:
+            gs = state.guard_state
+            self._gs = dataclasses.replace(
+                gs, ckpt_phi=own(gs.ckpt_phi), ckpt_fl=own(gs.ckpt_fl),
+                **{f: getattr(gs, f).clone() for f in
+                   ("ckpt_cost", "ckpt_sigma", "valid") + _GUARD_SCALARS})
+            self._do_ckpt = (torch.zeros((), dtype=torch.bool, device=dev)
+                             if state.guard_cfg.checkpoint_every else False)
+        self._rec = torch.zeros(3 if self._gs is None else 6,
+                                dtype=torch.float32, device=dev)
         self._hist: list = []
         self._n_rows = 0              # iterations dispatched so far
         self._gen_states: list = []   # the generator before each draw
         self._it = state.it           # the open segment's iteration count
+        self._seg_it0 = state.it      # the count the open segment began at
         self._markers: list = []      # closed segments' boundary scalars
-        self._graph = None
-        self._per_replay: dict = {}
-        self._dispatched = 0
+        self._runner = _Graphed(self._iterate, dev)
+        self.stats = self._runner.stats
         self._finished = False
-        self.stats = {"graph": dev.type == "cuda", "warmup_s": None,
-                      "capture_s": None, "captures": 0, "pool_bytes": None,
-                      "replays": 0, "launches_per_replay": None}
 
     def _iterate(self):
         """One iteration on the carry, in place."""
         md, mr = self._masks if self._masks is not None else (None, None)
         st = self.state
-        phi_new, fl_new, cost_new = _sgp_step_flows_impl(
+        out = _sgp_step_flows_impl(
             self.net, self._phi, self._fl, self._consts, mask_data=md,
             mask_result=mr, sigma=self._sigma, nbrs=st.nbrs,
-            buckets=st.buckets, active=self._active, **self._o)
-        *scalars, take, live = _accept_update_impl(
-            phi_new, fl_new, cost_new, self._phi, self._fl, self._sigma,
-            self._prev, self._n_costs, self._n_rej, self._stopped,
-            self._tol, self._adaptive)
+            buckets=st.buckets, active=self._active, fault_plan=self._plan,
+            fault_state=self._fs, fault_draws=self._draws, **self._o)
+        phi_new, fl_new, cost_new = out[:3]
+        if self._fs is not None:
+            # a stopped carry freezes the fault carry too
+            for d, s in zip(_fault_tensors(self._fs),
+                            _fault_tensors(out[3])):
+                if s is not d:
+                    torch.where(self._stopped, d, s, out=d)
+        args = (phi_new, fl_new, cost_new, self._phi, self._fl, self._sigma,
+                self._prev, self._n_costs, self._n_rej, self._stopped,
+                self._tol)
+        if self._gs is not None:
+            from .guards import _guarded_update_impl
+            *scalars, take, live, gs, code, rolled, ck_cost = \
+                _guarded_update_impl(*args, self._gs, st.nbrs,
+                                     adaptive=self._adaptive,
+                                     cfg=st.guard_cfg,
+                                     do_ckpt=self._do_ckpt)
+            for f in _GUARD_SCALARS:
+                getattr(self._gs, f).copy_(getattr(gs, f))
+            rec = (cost_new, take, live, code, rolled, ck_cost)
+        else:
+            *scalars, take, live = _accept_update_impl(*args,
+                                                       self._adaptive)
+            rec = (cost_new, take, live)
         for d, s in zip((self._sigma, self._prev, self._n_costs,
                          self._n_rej, self._stopped), scalars):
             d.copy_(s)
-        self._rec.copy_(torch.stack([cost_new.float(), take.float(),
-                                     live.float()]))
-
-    def _dispatch(self):
-        if self.net.device.type != "cuda":
-            self._iterate()
-        elif self._dispatched == 0:
-            t0 = time.perf_counter()
-            side, _ = _side_stream(self.net.device)
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self._iterate()
-            torch.cuda.current_stream().wait_stream(side)
-            self.stats["warmup_s"] = time.perf_counter() - t0
-        else:
-            if self._graph is None:
-                self._capture()
-            self._graph.replay()
-            kernel_ops.add_launches(self._per_replay)
-            self.stats["replays"] += 1
-        self._dispatched += 1
-
-    def _capture(self):
-        t0 = time.perf_counter()
-        reserved = torch.cuda.memory_reserved()
-        before = kernel_ops.launches()
-        graph = torch.cuda.CUDAGraph()
-        side, pool = _side_stream(self.net.device)
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            graph.capture_begin(pool=pool)
-            try:
-                self._iterate()
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream().wait_stream(side)
-        after = kernel_ops.launches()
-        # capturing launches nothing: the counts ticked are one replay's
-        self._per_replay = {k: after[k] - before[k] for k in after
-                            if after[k] != before[k]}
-        kernel_ops.add_launches(self._per_replay, -1)
-        self._graph = _LAST_GRAPHS[_device_key(self.net.device)] = graph
-        self.stats["captures"] += 1
-        self.stats.update(
-            capture_s=(self.stats["capture_s"] or 0.0)
-            + time.perf_counter() - t0,
-            pool_bytes=torch.cuda.memory_reserved() - reserved,
-            launches_per_replay=dict(self._per_replay))
+        self._rec.copy_(torch.stack([x.float() for x in rec]))
 
     def advance(self, n_iters: int) -> "FusedStream":
         """Dispatch `n_iters` iterations; the host never waits on the
         device."""
-        if self._finished:
-            raise RuntimeError("stream already finished")
-        if n_iters <= 0:
-            return self
-        net = self.net
-        hist = torch.empty((n_iters, 3), dtype=torch.float32,
-                           device=net.device)
-        for i in range(n_iters):
-            it = self._it + i
-            if self._refresh and it > 0 and it % self._refresh == 0:
-                fresh = _refreshed_consts(net, self._consts, self._prev,
-                                          self._stopped)
-                for d, s in zip(_fields(self._consts), _fields(fresh)):
-                    d.copy_(s)
-            if self._masks is not None:
-                self._gen_states.append(self._rng.get_state())
-                for d, s in zip(self._masks,
-                                _async_masks(self._rng, net, self._async)):
-                    d.copy_(s)
-            self._dispatch()
-            hist[i].copy_(self._rec)
-        self._hist.append(hist)
-        self._n_rows += n_iters
-        self._it += n_iters
+        _advance_streams([self], n_iters, self._runner, self._rec[None])
         return self
 
-    def rebaseline(self, net_new: CECNetwork, repair=None, *, rng=None,
-                   active=None) -> "FusedStream":
+    def _prepare(self, it: int) -> None:
+        """The eager work before iteration `it`'s dispatch (the
+        paper-scaling refresh, the Theorem-2 masks, the fault draws, the
+        checkpoint flag), written into the buffers the graph reads."""
+        net = self.net
+        if self._refresh and it > 0 and it % self._refresh == 0:
+            fresh = _refreshed_consts(net, self._consts, self._prev,
+                                      self._stopped)
+            _copy_into(self._consts, fresh)
+        if self._masks is not None:
+            self._gen_states.append(self._rng.get_state())
+            _copy_into(self._masks,
+                       _async_masks(self._rng, net, self._async))
+        if self._fs is not None:
+            self._fgen_states.append(self._fs.gen.get_state())
+            _copy_into(self._draws, _faults.draw_faults(
+                self._fs.gen, self._plan, net.S, net.V))
+        if self._do_ckpt is not None and self._do_ckpt is not False:
+            self._do_ckpt.fill_(
+                it % self.state.guard_cfg.checkpoint_every == 0)
+
+    def rebaseline(self, net_new: CECNetwork, repair=None, *, fault_rng=None,
+                   rng=None, active=None) -> "FusedStream":
         """Fold one SAME-GRAPH churn event into the carry with no host
         read: close the open segment (its boundary scalars are cloned,
         since the carry's are overwritten in place, and read in
@@ -962,11 +1106,14 @@ class FusedStream:
         repairs; device ops only); a rate event passes None.  The
         churned network's r, dest, a, w, task_type and compute costs are
         copied into the buffers the captured graph reads, as are the
-        fresh φ, flows, T⁰ and constants; σ = 1, the counts reset.
-        `net_new` must have the stream's adjacency and link costs
-        (topology events break the stream).  `rng` is the new segment's
-        Theorem-2 generator; `active` a task pool's updated mask (the
-        first mask of a stream that had none captures a new graph)."""
+        fresh φ, flows, T⁰ and constants; σ = 1, the counts reset.  A
+        fault plan's state is re-initialised on the repaired φ, drawing
+        from `fault_rng` (default seed 0), and the guard carry is
+        re-anchored at T⁰.  `net_new` must have the stream's adjacency
+        and link costs (topology events break the stream).  `rng` is the
+        new segment's Theorem-2 generator; `active` a task pool's
+        updated mask (the first mask of a stream that had none captures
+        a new graph)."""
         if self._finished:
             raise RuntimeError("stream already finished")
         if net_new.link_cost.params is not self.net.link_cost.params \
@@ -976,27 +1123,41 @@ class FusedStream:
                              "costs and S: a topology event breaks the "
                              "stream")
         st = self.state
-        self._markers.append(dict(end=self._n_rows, prev=self._prev.clone(),
+        self._markers.append(dict(end=self._n_rows, it0=self._seg_it0,
+                                  prev=self._prev.clone(),
                                   n_rej=self._n_rej.clone()))
         phi = self._phi if repair is None else repair(self._phi)
         fl, T0 = flows_carry_and_cost(net_new, phi, st.method, nbrs=st.nbrs,
                                       buckets=st.buckets)
         consts = make_consts(net_new, T0, st.min_scale)
         self._markers[-1]["T0"] = T0
+        if self._fs is not None:
+            fs = init_fault_state(net_new, phi, fl, self._plan, rng=fault_rng,
+                                  method=st.method, nbrs=st.nbrs,
+                                  buckets=st.buckets)
+            _copy_into(_fault_tensors(self._fs), _fault_tensors(fs))
+            self._fs = dataclasses.replace(self._fs, gen=fs.gen)
+            self._fgen_states = []
+        if self._gs is not None:
+            from .guards import init_guard_state
+            gs = init_guard_state(phi, fl, T0, st.guard_cfg)
+            _copy_into(self._gs.ckpt_phi, gs.ckpt_phi)
+            _copy_into(self._gs.ckpt_fl, gs.ckpt_fl)
+            for f in ("ckpt_cost", "ckpt_sigma", "valid") + _GUARD_SCALARS:
+                getattr(self._gs, f).copy_(getattr(gs, f))
         for k in _CHURN_FIELDS:
             getattr(self.net, k).copy_(getattr(net_new, k))
         self.net.comp_cost.params.copy_(net_new.comp_cost.params)
         for own, new in ((self._phi, phi), (self._fl, fl),
                          (self._consts, consts)):
             if new is not own:
-                for d, s in zip(_fields(own), _fields(new)):
-                    d.copy_(s)
+                _copy_into(own, new)
         if active is not None:
             st.active = active
             if self._active is None:
                 # the step gains the mask's operations: a new graph
                 self._active = active.clone()
-                self._graph, self._dispatched = None, 0
+                self._runner.reset()
             else:
                 self._active.copy_(active)
         self._sigma.fill_(1.0)
@@ -1004,7 +1165,7 @@ class FusedStream:
         self._n_costs.fill_(1)
         self._n_rej.zero_()
         self._stopped.fill_(False)
-        self._it = 0
+        self._it = self._seg_it0 = 0
         self._gen_states = []
         if rng is not None:
             self._rng = rng
@@ -1015,45 +1176,67 @@ class FusedStream:
 
         With no rebaselines it leaves `state` where the host driver
         would have (costs extended, `it` and `n_rejected` advanced, the
-        generator too) and returns [].  With rebaselines it returns one
-        dict per segment (``accepted`` costs, ``executed`` iterations,
-        ``n_rejected``, and for each closed segment its event's
+        generators too, guard trips appended to `guard_events`) and
+        returns [].  With rebaselines it returns one dict per segment
+        (``accepted`` costs, ``executed`` iterations, ``n_rejected``,
+        ``guard_events``, and for each closed segment its event's
         ``cost_before`` and ``cost_after``), the open one last, and
         leaves `state` as that segment's warm `RunState`: what the event
-        loop's fresh state would be after the same iterations."""
+        loop's fresh state would be after the same iterations.  Guard
+        events are numbered from each segment's first iteration, as the
+        event loop's fresh states count."""
+        return _finish_streams([self])[0]
+
+    def _pack(self) -> torch.Tensor:
+        """Close the stream and gather what `finish` reads back, as one
+        float32 vector: the history rows, each closed segment's boundary
+        (cost before, rejections, T⁰), then σ, the open segment's
+        rejections and `stopped`."""
         if self._finished:
             raise RuntimeError("stream already finished")
         self._finished = True
-        self._graph = None
-        st = self.state
+        self._runner.graph = None
         dev = self.net.device
         hist = (torch.cat(self._hist) if self._hist else
-                torch.empty((0, 3), device=dev))
+                torch.empty((0, self._rec.shape[0]), device=dev))
+        parts = [hist.reshape(-1)]
+        if self._markers:
+            parts.append(torch.stack([
+                torch.stack([m["prev"].float(), m["n_rej"].float(),
+                             m["T0"].float()])
+                for m in self._markers]).reshape(-1))
+        parts.append(torch.stack([self._sigma.float(), self._n_rej.float(),
+                                  self._stopped.float()]))
+        return torch.cat(parts)
+
+    def _unpack(self, packed: list) -> list:
+        """`finish`'s bookkeeping on the values `_pack` gathered."""
+        st = self.state
         st.graph_stats = dict(self.stats) if self.stats["graph"] else None
-        if not self._markers:
-            self._rewind(_fold_fused_histories(
-                st, self._sigma, self._n_rej, self._stopped, hist))
-            st.phi, st.flows, st.consts = self._phi, self._fl, self._consts
-            return []
-        marks = torch.stack([torch.stack([m["prev"].float(),
-                                          m["n_rej"].float(),
-                                          m["T0"].float()])
-                             for m in self._markers])
-        packed = torch.cat([
-            hist.reshape(-1), marks.reshape(-1),
-            torch.stack([self._sigma.float(), self._n_rej.float(),
-                         self._stopped.float()])]).cpu().tolist()
-        n, m = hist.shape[0], len(self._markers)
-        rows = [packed[3 * i:3 * i + 3] for i in range(n)]
-        marks = [packed[3 * (n + k):3 * (n + k) + 3] for k in range(m)]
+        n, w, m = self._n_rows, self._rec.shape[0], len(self._markers)
+        rows = [packed[w * i:w * i + w] for i in range(n)]
         sigma, n_rej, stopped = packed[-3:]
+        if not m:
+            n_live = sum(1 for r in rows if r[2])
+            st.costs.extend(r[0] for r in rows if r[2] and r[1])
+            st.sigma, st.stopped = sigma, bool(stopped)
+            st.n_rejected += int(n_rej)
+            st.it += n_live
+            self._finish_state(n_live)
+            if self._gs is not None:
+                st.guard_events.extend(_render_guard_events(rows,
+                                                            self._seg_it0))
+            return []
+        marks = [packed[w * n + 3 * k:w * n + 3 * k + 3] for k in range(m)]
         bounds = [0] + [mk["end"] for mk in self._markers] + [n]
+        it0s = [mk["it0"] for mk in self._markers] + [self._seg_it0]
         segs = []
         for k in range(m + 1):
             seg_rows = rows[bounds[k]:bounds[k + 1]]
-            seg = {"accepted": [c for c, take, live in seg_rows
-                                if live and take],
-                   "executed": sum(1 for *_, live in seg_rows if live)}
+            seg = {"accepted": [r[0] for r in seg_rows if r[2] and r[1]],
+                   "executed": sum(1 for r in seg_rows if r[2]),
+                   "guard_events": (_render_guard_events(seg_rows, it0s[k])
+                                    if self._gs is not None else [])}
             if k < m:
                 seg.update(cost_before=marks[k][0],
                            n_rejected=int(marks[k][1]),
@@ -1066,15 +1249,58 @@ class FusedStream:
         st.sigma, st.n_rejected = sigma, int(n_rej)
         st.it, st.stopped = last["executed"], bool(stopped)
         st.rng = self._rng
-        self._rewind(last["executed"])
-        st.phi, st.flows, st.consts = self._phi, self._fl, self._consts
+        st.guard_events = list(last["guard_events"])
+        self._finish_state(last["executed"])
         return segs
 
-    def _rewind(self, n_live: int) -> None:
-        """A stopped carry's frozen iterations drew masks the host loop
-        never drew: rewind the open segment's generator past them."""
+    def _finish_state(self, n_live: int) -> None:
+        """The carry back into `state`.  A stopped carry's frozen
+        iterations drew masks and faults the host loop never drew:
+        rewind the open segment's generators past them."""
+        st = self.state
         if n_live < len(self._gen_states):
             self._rng.set_state(self._gen_states[n_live])
+        if n_live < len(self._fgen_states):
+            self._fs.gen.set_state(self._fgen_states[n_live])
+        st.phi, st.flows, st.consts = self._phi, self._fl, self._consts
+        if self._fs is not None:
+            st.fault_state = self._fs
+        if self._gs is not None:
+            st.guard_state = self._gs
+
+
+def _advance_streams(streams, n_iters: int, runner, rec) -> None:
+    """Dispatch `n_iters` iterations of fused streams on one device, one
+    call of `runner` an iteration: it runs every stream's `_iterate` and
+    leaves their history rows in `rec` [len(streams), w], copied into
+    the streams' histories."""
+    if any(s._finished for s in streams):
+        raise RuntimeError("stream already finished")
+    if n_iters <= 0:
+        return
+    hist = torch.empty((n_iters,) + tuple(rec.shape), dtype=torch.float32,
+                       device=rec.device)
+    for i in range(n_iters):
+        for s in streams:
+            s._prepare(s._it + i)
+        runner()
+        hist[i].copy_(rec)
+    for b, s in enumerate(streams):
+        s._hist.append(hist[:, b])
+        s._n_rows += n_iters
+        s._it += n_iters
+
+
+def _finish_streams(streams) -> list:
+    """`FusedStream.finish` for fused streams on one device with a single
+    device-to-host read between them.  Returns each stream's segments."""
+    packs = [s._pack() for s in streams]
+    host = torch.cat(packs).cpu().tolist()
+    out, o = [], 0
+    for s, p in zip(streams, packs):
+        out.append(s._unpack(host[o:o + p.numel()]))
+        o += p.numel()
+    return out
 
 
 def run_opt_keys(fn=None) -> frozenset:
@@ -1112,7 +1338,8 @@ def run(net: CECNetwork, phi0, n_iters: int = 200, variant: str = "sgp",
         refresh_every: int = 20, scaling: str = "adaptive",
         kappa: float = 0.0, driver: Optional[str] = None,
         bucketed: bool = False, nbrs: Optional[Neighbors] = None,
-        buckets=None):
+        buckets=None, fault_plan=None,
+        fault_rng: Optional[torch.Generator] = None, guards=None):
     """Algorithm 1 from φ⁰ for `n_iters` iterations (or until σ blows up
     or the tol exit fires): `init_run_state` and one `run_chunk`.
 
@@ -1127,14 +1354,19 @@ def run(net: CECNetwork, phi0, n_iters: int = 200, variant: str = "sgp",
     κ > 0 adds Eq. 16's cross terms; async_frac > 0 updates a random
     share of the rows each iteration, drawn from the generator `rng` on
     the network's device.  bucketed=True (sparse engine) runs every
-    recursion over degree buckets, bit for bit the padded trajectory.  `nbrs` and
-    `buckets` take tiles already built.  A dense `Phi` in gives a dense
-    `Phi` back, a `PhiSparse` a `PhiSparse`.  Returns (phi_final,
-    {"costs", "final_cost", "n_rejected"})."""
+    recursion over degree buckets, bit for bit the padded trajectory.
+    `nbrs` and `buckets` take tiles already built.  `fault_plan`
+    (`faults.FaultPlan`, drawing from the generator `fault_rng`) arms
+    the fault injectors and `guards` (`guards.GuardConfig`) the
+    sentinels and rollback; either runs the fused driver, and the
+    history then also carries "guard_events" / "n_corrupt".  A dense
+    `Phi` in gives a dense `Phi` back, a `PhiSparse` a `PhiSparse`.
+    Returns (phi_final, {"costs", "final_cost", "n_rejected"})."""
     dense_in = not isinstance(phi0, PhiSparse)
     state = init_run_state(net, phi0, min_scale=min_scale, method=method,
                            rng=rng, nbrs=nbrs, bucketed=bucketed,
-                           buckets=buckets)
+                           buckets=buckets, fault_plan=fault_plan,
+                           fault_rng=fault_rng, guards=guards)
     state = run_chunk(net, state, n_iters, variant=variant, beta=beta,
                       allowed_data=allowed_data,
                       allowed_result=allowed_result, async_frac=async_frac,
@@ -1144,5 +1376,10 @@ def run(net: CECNetwork, phi0, n_iters: int = 200, variant: str = "sgp",
     phi = state.phi
     if method == "sparse" and dense_in:
         phi = sparse_to_phi(phi, state.nbrs, net.V)
-    return phi, {"costs": state.costs, "final_cost": state.costs[-1],
-                 "n_rejected": state.n_rejected}
+    hist = {"costs": state.costs, "final_cost": state.costs[-1],
+            "n_rejected": state.n_rejected}
+    if guards is not None:
+        hist["guard_events"] = state.guard_events
+    if state.fault_state is not None:
+        hist["n_corrupt"] = int(state.fault_state.n_corrupt)
+    return phi, hist

@@ -1,5 +1,6 @@
 """Carry a network, an iterate, a churn schedule and task pool, a fault
-and a guard carry, LM weights and LM state across from numpy arrays.
+and a guard carry, a request router's and a distributed run's state, LM
+weights and LM state across from numpy arrays.
 
 The port never sees another framework's types: a caller hands over the
 fields as numpy arrays (`np.asarray(...)` of whatever holds them) and
@@ -65,6 +66,31 @@ def phi_sparse_from_numpy(data, local, result, device=None) -> PhiSparse:
 def phi_sparse_to_numpy(phi: PhiSparse) -> tuple:
     """(data, local, result) as numpy arrays."""
     return tuple(t.cpu().numpy() for t in (phi.data, phi.local, phi.result))
+
+
+def router_to_numpy(router) -> dict:
+    """A `serving.RequestRouter`'s network fields (`network_to_numpy`),
+    its live iterate as (data, local, result) under "phi" (None before
+    the first plan) and its pod nodes."""
+    out = network_to_numpy(router.net)
+    phi = router.phi
+    out["phi"] = (None if phi is None else phi_sparse_to_numpy(phi)
+                  if isinstance(phi, PhiSparse)
+                  else tuple(t.cpu().numpy() for t in (phi.data,
+                                                       phi.result)))
+    out["pod_nodes"] = list(router.pod_nodes)
+    return out
+
+
+def distributed_phi_to_numpy(state) -> tuple:
+    """The PADDED whole iterate of a `distributed.DistributedRunState`
+    (every rank's task shard gathered, padding tasks kept: the
+    reference's padded global φ) as numpy arrays, field by field.  A
+    collective: every rank calls it."""
+    from .core.distributed import _gather_tasks
+    return tuple(_gather_tasks(getattr(state.phi, f.name),
+                               state.mesh).cpu().numpy()
+                 for f in dataclasses.fields(state.phi))
 
 
 def fault_state_from_numpy(ring, held, n_corrupt, seed: int = 0,

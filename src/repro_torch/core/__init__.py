@@ -31,6 +31,10 @@ from .replay import (EventRecord, ReplayEngine, check_feasible,
 from .faults import (FaultPlan, FaultState, fault_state_specs,
                      init_fault_state)
 from .guards import GuardConfig, GuardEvent, GuardState, init_guard_state
+from .distributed import (DistributedRunState, NodePartition,
+                          build_node_partition, init_distributed_state,
+                          node_flows_carry_and_cost, run_distributed,
+                          run_distributed_chunk, task_mesh, task_node_mesh)
 from .fleet import (FleetCache, FleetState, fleet_cache_key,
                     init_fleet_state, run_fleet, run_fleet_chunk,
                     stack_fleet)
@@ -69,6 +73,10 @@ __all__ = [
     "init_fault_state", "GuardConfig", "GuardEvent", "GuardState",
     "init_guard_state", "FleetCache", "FleetState", "fleet_cache_key",
     "init_fleet_state", "run_fleet", "run_fleet_chunk", "stack_fleet",
+    "DistributedRunState", "NodePartition", "build_node_partition",
+    "init_distributed_state", "node_flows_carry_and_cost",
+    "run_distributed", "run_distributed_chunk", "task_mesh",
+    "task_node_mesh",
     "flow_domain_optimum", "marginals_vs_autodiff", "theorem1_residual",
     "topologies",
 ]

@@ -40,11 +40,12 @@ the fault-free program); an armed but inert plan (participation 1.0,
 dropout 0.0, corruption 0.0) selects the values the fault-free step
 computes, bit for bit.
 
-Left out until the port of `core/distributed.py` (P12): the task-sharded
-step's `psum_axis` (`fault_step_end` draws the task index over the local
-tasks only) and `fault_state_specs`, which raises NotImplementedError.
-The port picks each kernel by its tensors' device, so nothing here takes
-an `engine_impl`.
+Under the task-sharded driver (`core.distributed`) every rank draws the
+same faults (identically seeded generators), `fault_step_end(mesh=)`
+draws the poisoned task over the whole task axis and only the rank that
+holds it applies it, and `fault_state_specs` says which dimension of
+each carry field is the task axis.  The port picks each kernel by its
+tensors' device, so nothing here takes an `engine_impl`.
 """
 from __future__ import annotations
 
@@ -141,11 +142,18 @@ def init_fault_state(net: CECNetwork, phi, fl, plan: FaultPlan,
                                             device=net.device))
 
 
-def fault_state_specs(plan: FaultPlan, axis: str):
-    """The task-sharded step's partition of a FaultState: comes with the
-    port of `core/distributed.py`."""
-    raise NotImplementedError("fault_state_specs comes with the port of "
-                              "core/distributed.py (P12)")
+def fault_state_specs(plan: FaultPlan, axis: str = "tasks") -> FaultState:
+    """How a FaultState lies over the task-sharded ranks, field by field:
+    the dimension that is the task axis, None where the field is
+    replicated (the generator and the count).  The ring stacks shard on
+    dimension 1 (behind the age axis), the held copies on dimension 0,
+    as the reference's PartitionSpecs over `axis` say; the structure
+    matches `init_fault_state`'s for the same plan."""
+    ring = (tuple(1 for _ in _MG_FIELDS) if plan.staleness_k > 0
+            else None)
+    held = (tuple(0 for _ in _MG_FIELDS) if plan.dropout_p is not None
+            else None)
+    return FaultState(gen=None, ring=ring, held=held, n_corrupt=None)
 
 
 def draw_faults(gen: torch.Generator, plan: FaultPlan, S: int,
@@ -228,21 +236,31 @@ def fault_step_begin(net: CECNetwork, phi, fl, fs: FaultState,
 
 def fault_step_end(net: CECNetwork, phi_new, draws: FaultDraws,
                    plan: FaultPlan, fs_mid: FaultState,
-                   nbrs: Optional[Neighbors] = None):
+                   nbrs: Optional[Neighbors] = None, mesh=None):
     """The injector after the measurement: transient value corruption.
 
     If the draw fires, poison the data row (the real out-edge slots and
     the local column; padding slots stay 0) of one uniformly drawn
     (task, node) of the candidate; dense, the row's adjacency columns
     and the local one.  Runs after the candidate's flows and cost, so
-    the measured cost is the healthy candidate's.  Returns (phi_out,
-    fs_new) with the corruptions counted."""
+    the measured cost is the healthy candidate's.  Under `mesh` (a
+    `distributed.TaskMesh`, φ this rank's shard of S_l tasks) the task
+    index is drawn over the whole axis of S_l · ranks tasks and only the
+    rank that holds it poisons its row; every rank counts the firing.
+    Returns (phi_out, fs_new) with the corruptions counted."""
     if plan.corrupt_p is None:
         return phi_new, fs_mid
     dev = phi_new.data.device
     poison = float("nan") if plan.corrupt_mode == "nan" else float("inf")
     S, V = phi_new.data.shape[0], net.V
-    s_idx = torch.clamp_max((draws.u_s * S).to(torch.int32), S - 1)
+    if mesh is None:
+        s_idx = torch.clamp_max((draws.u_s * S).to(torch.int32), S - 1)
+    else:
+        # the global index from the replicated draw; a rank that does not
+        # hold it selects no row (an index outside [0, S))
+        S_g = S * mesh.size
+        s_idx = (torch.clamp_max((draws.u_s * S_g).to(torch.int32), S_g - 1)
+                 - mesh.rank * S)
     v_idx = torch.clamp_max((draws.u_v * V).to(torch.int32), V - 1)
     sel = ((torch.arange(S, device=dev) == s_idx)[:, None]
            & (torch.arange(V, device=dev) == v_idx)[None, :]

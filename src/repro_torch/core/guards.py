@@ -36,6 +36,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed
 
 from .network import Neighbors, PhiSparse, sanitize_phi_sparse
 from .sgp import _accept_update_impl, _f32, _fields
@@ -171,13 +172,19 @@ def _guarded_update_impl(phi_new, fl_new, cost_new, phi, fl, sigma, prev,
                          n_costs, n_rej, stopped, tol, gs: GuardState,
                          nbrs: Optional[Neighbors] = None,
                          adaptive: bool = True,
-                         cfg: GuardConfig = GuardConfig(), do_ckpt=False):
+                         cfg: GuardConfig = GuardConfig(), do_ckpt=False,
+                         mesh=None):
     """One guarded driver iteration: `_accept_update_impl`, then the
     sentinels, rollback and checkpoint as selects.  Like it, it writes φ
     and the flows into `phi` and `fl` (the rollback target is the ring,
     never the pre-accept φ); the ring is written in place too.
     `do_ckpt` (a bool, or a bool device scalar the fused driver writes
     before each replay) says whether this iteration may write the ring.
+
+    Under `mesh` (a `distributed.TaskMesh`: φ, the flows and the ring
+    hold this rank's task shard) the φ sentinels and the checkpoint's
+    health are or-reduced over the ranks (one all-reduce of three
+    flags), so every rank trips and restores alike.
 
     Returns (sigma, prev, n_costs, n_rej, stopped, take, live, gs, code,
     rolled, ckpt_cost): the accept update's outputs, the new GuardState
@@ -197,11 +204,6 @@ def _guarded_update_impl(phi_new, fl_new, cost_new, phi, fl, sigma, prev,
     phi_bad = ~_tree_finite(phi)
     mass_bad = _mass_err(phi) > cfg.mass_eps
     explode = prev_a > _f32(cfg.explode_factor, dev) * window_pre.min()
-    code = torch.zeros((), dtype=torch.int32, device=dev)
-    for flag, c in ((explode, 4), (mass_bad, 3), (phi_bad, 2),
-                    (cost_bad, 1)):
-        code = torch.where(flag, c, code)
-    trip = live & (code > 0)
 
     # the rollback target: the newest ring slot
     idx = ((gs.ptr + (R - 1)) % R).long()
@@ -210,9 +212,22 @@ def _guarded_update_impl(phi_new, fl_new, cost_new, phi, fl, sigma, prev,
     ck_sigma = _ring_slot(gs.ckpt_sigma, idx)
     ck_phi = _ring_slot(gs.ckpt_phi, idx)
     ck_fl = _ring_slot(gs.ckpt_fl, idx)
-    if isinstance(ck_phi, PhiSparse) and nbrs is not None:
+    repair = isinstance(ck_phi, PhiSparse) and nbrs is not None
+    if repair:
+        ck_sick = ~_phi_healthy(ck_phi, cfg.mass_eps)
+    if mesh is not None:
+        flags = torch.stack([phi_bad, mass_bad,
+                             ck_sick if repair else phi_bad]).to(torch.int32)
+        mesh.all_reduce_(flags, torch.distributed.ReduceOp.MAX)
+        phi_bad, mass_bad, ck_sick = (flags > 0).unbind()
+    code = torch.zeros((), dtype=torch.int32, device=dev)
+    for flag, c in ((explode, 4), (mass_bad, 3), (phi_bad, 2),
+                    (cost_bad, 1)):
+        code = torch.where(flag, c, code)
+    trip = live & (code > 0)
+    if repair:
         # a slot written before a later trip noticed its poison: repair it
-        ck_ok = _phi_healthy(ck_phi, cfg.mass_eps) & torch.isfinite(ck_cost)
+        ck_ok = ~ck_sick & torch.isfinite(ck_cost)
         clean = sanitize_phi_sparse(ck_phi, nbrs)
         ck_phi = PhiSparse(*(torch.where(ck_ok, a, b) for a, b in
                              zip(_fields(ck_phi), _fields(clean))))

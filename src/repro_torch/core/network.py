@@ -455,20 +455,38 @@ def flows_carry(fl: "Flows") -> FlowsCarry:
 
 def flows_carry_and_cost(net: CECNetwork, phi, method: str = "dense",
                          nbrs: Neighbors | None = None,
-                         buckets: NeighborBuckets | None = None):
+                         buckets: NeighborBuckets | None = None,
+                         mesh=None):
     """(FlowsCarry, total cost) of one iterate.  The sparse engine stays
     in the edge-slot layout (F on the [V, Dmax] slots); the dense and
-    broadcast engines carry the dense [V, V] F."""
+    broadcast engines carry the dense [V, V] F.  `mesh` (a
+    `distributed.TaskMesh`; `net` and φ hold this rank's tasks)
+    all-reduces F and G over the ranks in one collective, so the cost
+    is the whole problem's; None leaves the path as it is."""
     check_method(method)
     if method != "sparse":
         fl = compute_flows(net, phi, method)
+        if mesh is not None:
+            F, G = _all_reduce_FG(fl.F, fl.G, mesh)
+            fl = dataclasses.replace(fl, F=F, G=G)
         return flows_carry(fl), cost_of_flows(net, fl)
     nbrs = nbrs if nbrs is not None else build_neighbors(net.adj)
     t_data, t_result, _, f_data, f_result, G = _traffic(
         net, phi, nbrs, buckets)
-    carry = FlowsCarry(t_data, t_result, torch.sum(f_data + f_result, dim=0),
-                       G)
+    F = torch.sum(f_data + f_result, dim=0)
+    if mesh is not None:
+        F, G = _all_reduce_FG(F, G, mesh)
+    carry = FlowsCarry(t_data, t_result, F, G)
     return carry, cost_of_carry(net, carry, nbrs)
+
+
+def _all_reduce_FG(F, G, mesh):
+    """F and G summed over the mesh's ranks: one all-reduce of the two in
+    one buffer, copied back into F and G (their own allocations)."""
+    buf = mesh.all_reduce_(torch.cat([F.reshape(-1), G]))
+    F.copy_(buf[:F.numel()].view(F.shape))
+    G.copy_(buf[F.numel():])
+    return F, G
 
 
 def _solve_dense(A, b):

@@ -54,6 +54,7 @@ from .network import (CECNetwork, Neighbors, PhiSparse, build_buckets,
                       refeasibilize_sparse, refeasibilize_sparse_samegraph,
                       seed_task_slot, sparse_to_phi, spt_phi_sparse,
                       spt_result_slots)
+from . import distributed as dist
 from .sgp import FusedStream, init_run_state, run_chunk, run_opt_keys
 
 
@@ -173,10 +174,14 @@ class ReplayEngine:
 
     driver="run" resumes `sgp.run_chunk` between events (`loop_driver`
     "fused", the default, or "host"; `run_opts` go to every chunk).
-    driver="distributed" and `mesh` keep the reference's signature and
-    raise NotImplementedError: they come with the port of
-    `core/distributed.py` (P12).  `engine_impl` must be None: the port
-    picks each kernel by its tensors' device.
+    driver="distributed" resumes the task-sharded driver
+    (`distributed.run_distributed_chunk` over `mesh`, a
+    `distributed.TaskMesh`; default `task_mesh()`): every event
+    rebuilds the state from the warm iterate, as driver="run" does; its
+    `run_opts` may set only variant, scaling and kappa, and it takes no
+    `rng`, `pool` or `bucketed`.  Every rank replays the same schedule.
+    `engine_impl` must be None: the port picks each kernel by its
+    tensors' device.
 
     `fault_plan`, `fault_rng` and `guards` (`core.faults`, `core.guards`)
     thread the robustness layer through every warm segment: each
@@ -207,10 +212,27 @@ class ReplayEngine:
                  pool: Optional[TaskPool] = None):
         if driver not in ("run", "distributed"):
             raise ValueError(f"unknown replay driver {driver!r}")
-        if driver == "distributed" or mesh is not None:
-            raise NotImplementedError(
-                "driver='distributed' and mesh= come with the port of "
-                "core/distributed.py (P12)")
+        if driver != "distributed" and mesh is not None:
+            raise ValueError("mesh= needs driver='distributed'")
+        if driver == "distributed":
+            if bucketed:
+                raise ValueError("bucketed replay needs driver='run' (the "
+                                 "distributed step shards the padded tile)")
+            if rng is not None:
+                raise ValueError("the Theorem-2 generator (rng=) drives "
+                                 "run_chunk's row masks; driver="
+                                 "'distributed' does not consume it")
+            if pool is not None:
+                raise ValueError("a dynamic task pool needs driver='run': "
+                                 "the distributed step does not thread "
+                                 "the active mask")
+            unsupported = set(run_opts or {}) - {"variant", "scaling",
+                                                 "kappa"}
+            if unsupported:
+                raise ValueError(
+                    f"run_opts {sorted(unsupported)} are not supported by "
+                    "driver='distributed' (it takes variant, scaling and "
+                    "kappa at init)")
         if engine_impl is not None:
             raise ValueError("engine_impl must be None: the port picks "
                              "each kernel by its tensors' device")
@@ -219,12 +241,15 @@ class ReplayEngine:
                 f"network has S={int(net.S)} task slots but the pool's "
                 f"S_cap={pool.S_cap}; pad the network with "
                 "network.pad_tasks(net, pool.S_cap) first")
+        self.driver = driver
+        self.mesh = mesh
+        self.loop_driver = loop_driver
         self.run_opts = dict(run_opts or {})
         unknown = set(self.run_opts) - set(run_opt_keys())
         if unknown:
             raise ValueError(f"run_opts {sorted(unknown)} are not "
                              "options of run_chunk")
-        if loop_driver is not None:
+        if loop_driver is not None and driver == "run":
             self.run_opts.setdefault("driver", loop_driver)
         if self.run_opts.get("async_frac", 0.0) > 0.0 and rng is None:
             raise ValueError(
@@ -305,6 +330,19 @@ class ReplayEngine:
                 dataclasses.replace(ev, it=self.total_iters))
 
     def _init_state(self, phi_sp: PhiSparse) -> None:
+        if self.driver == "distributed":
+            self.state = dist.init_distributed_state(
+                self.net, phi_sp, mesh=self.mesh, method="sparse",
+                min_scale=self.min_scale,
+                variant=self.run_opts.get("variant", "sgp"),
+                scaling=self.run_opts.get("scaling", "adaptive"),
+                kappa=self.run_opts.get("kappa", 0.0),
+                fault_plan=self.fault_plan,
+                fault_rng=(None if self.fault_plan is None
+                           else self._segment_fault_rng()),
+                guards=self.guards)
+            self.mesh = self.state.mesh      # reused across re-inits
+            return
         self.state = init_run_state(
             self.net, phi_sp, min_scale=self.min_scale, method="sparse",
             nbrs=self.nbrs, bucketed=self.bucketed, buckets=self.buckets,
@@ -316,7 +354,10 @@ class ReplayEngine:
 
     @property
     def phi(self) -> PhiSparse:
-        """The live edge-slot iterate."""
+        """The live edge-slot iterate (under driver="distributed" the
+        whole unpadded iterate, gathered over the ranks)."""
+        if self.driver == "distributed":
+            return dist.unpad_phi(self.state)
         return self.state.phi
 
     @property
@@ -347,7 +388,11 @@ class ReplayEngine:
         before = len(self.state.costs)
         it_before = self.state.it
         self.state.graph_stats = None
-        run_chunk(self.net, self.state, n_iters, **self.run_opts)
+        if self.driver == "distributed":
+            dist.run_distributed_chunk(self.state, n_iters,
+                                       driver=self.loop_driver)
+        else:
+            run_chunk(self.net, self.state, n_iters, **self.run_opts)
         self._log_graph(self.state.graph_stats)
         executed = self.state.it - it_before
         self.total_iters += executed
@@ -454,6 +499,9 @@ class ReplayEngine:
 
     def _stream_eligibility(self) -> Optional[str]:
         """None if this engine can run fused streams, else why not."""
+        if self.driver != "run":
+            return ("driver='distributed' replays through its own chunk "
+                    "driver")
         if self.run_opts.get("driver") == "host":
             return ("loop_driver='host' forces the per-iteration "
                     "reference loop")

@@ -33,8 +33,10 @@ chunk's costs back once at its end; on the card its iteration is
 captured once into a CUDA graph and replayed.  Fault injection
 (`core.faults`) and the guards' sentinels and rollback (`core.guards`)
 ride the fused driver's carry (`fault_plan`, `fault_rng` and `guards` of
-`run` and `init_run_state`).  The task-sharded driver of the reference's
-`core/distributed.py` comes with its port (P12).
+`run` and `init_run_state`).  The task-sharded driver
+(`core.distributed`) runs both drivers on a rank's task shard with a
+`TaskMesh` in the step (`mesh=`), whose one all-reduce of F and G
+couples the shards.
 """
 from __future__ import annotations
 
@@ -430,7 +432,8 @@ def _sgp_step_flows_impl(net: CECNetwork, phi, fl: FlowsCarry,
                          with_aux: bool = False, fault_plan=None,
                          fault_state: Optional[FaultState] = None,
                          fault_draws=None,
-                         active: Optional[torch.Tensor] = None):
+                         active: Optional[torch.Tensor] = None,
+                         mesh=None):
     """One driver iteration: propose from the carried flows, then
     measure the candidate.  Both drivers run exactly this.
 
@@ -445,7 +448,10 @@ def _sgp_step_flows_impl(net: CECNetwork, phi, fl: FlowsCarry,
     `active` ([S] bool, a task pool's mask) is folded into the Theorem-2
     row masks, so inactive slots' φ rows are kept bit for bit; their r
     and a are zero, so their flows and cost are exactly zero with no
-    mask on the measurement.  None adds no operation at all.  Returns
+    mask on the measurement.  None adds no operation at all.  `mesh` (a
+    `distributed.TaskMesh`; `net` and φ then hold this rank's task
+    shard) all-reduces the candidate's F and G over the ranks, and the
+    corruption's task is drawn over the whole task axis.  Returns
     (phi_new, carry_new, cost_new[, marginals of `phi` if with_aux])."""
     faulted = fault_plan is not None and fault_state is not None
     mg_in = None
@@ -468,10 +474,12 @@ def _sgp_step_flows_impl(net: CECNetwork, phi, fl: FlowsCarry,
         method=method, use_blocking=use_blocking, scaling=scaling,
         sigma=sigma, kappa=kappa, nbrs=nbrs, buckets=buckets, mg=mg_in)
     carry_new, cost_new = flows_carry_and_cost(net, phi_new, method,
-                                               nbrs=nbrs, buckets=buckets)
+                                               nbrs=nbrs, buckets=buckets,
+                                               mesh=mesh)
     if faulted:
         phi_new, fs_new = _faults.fault_step_end(
-            net, phi_new, fault_draws, fault_plan, fs_mid, nbrs=nbrs)
+            net, phi_new, fault_draws, fault_plan, fs_mid, nbrs=nbrs,
+            mesh=mesh)
         return phi_new, carry_new, cost_new, fs_new
     if with_aux:
         return phi_new, carry_new, cost_new, mg
@@ -552,7 +560,8 @@ class RunState:
     last chunk measured of its CUDA graph (None on the CPU).  The fault
     plan and state (`core.faults`) and the guard policy and state
     (`core.guards`) ride the fused driver's carry; `guard_events` are
-    the trips so far."""
+    the trips so far.  `mesh` (a `distributed.TaskMesh`) makes the state
+    a rank's task shard: every step all-reduces F and G over it."""
     phi: object                     # Phi | PhiSparse
     consts: SGPConsts
     nbrs: Optional[Neighbors]       # sparse engine only
@@ -573,6 +582,7 @@ class RunState:
     guard_state: object = None      # guards.GuardState
     guard_events: list = dataclasses.field(default_factory=list)
     active: Optional[torch.Tensor] = None   # a task pool's [S] bool mask
+    mesh: object = None             # distributed.TaskMesh (a task shard)
 
 
 def init_run_state(net: CECNetwork, phi0, min_scale: float = 0.05,
@@ -582,7 +592,8 @@ def init_run_state(net: CECNetwork, phi0, min_scale: float = 0.05,
                    buckets=None, fault_plan=None,
                    fault_rng: Optional[torch.Generator] = None,
                    guards=None,
-                   active: Optional[torch.Tensor] = None) -> RunState:
+                   active: Optional[torch.Tensor] = None,
+                   mesh=None) -> RunState:
     """Under method="sparse", build (or accept) the neighbour lists and,
     with bucketed=True, the degree buckets, and convert a dense φ⁰ to
     slots; the dense and broadcast engines iterate the dense `Phi`.
@@ -593,7 +604,8 @@ def init_run_state(net: CECNetwork, phi0, min_scale: float = 0.05,
     (`guards.GuardConfig`) arms the sentinels and rollback, anchored at
     φ⁰.  Either sends `run_chunk` to the fused driver.  `active` ([S]
     bool on the net's device) threads a task pool's mask through every
-    step (`_sgp_step_flows_impl`)."""
+    step (`_sgp_step_flows_impl`); `mesh` shards the state over tasks
+    (`core.distributed`: `net` and φ⁰ hold this rank's tasks)."""
     check_method(method)
     if rng is not None and rng.device.type != net.device.type:
         raise ValueError(f"the driver's generator lies on {rng.device}, "
@@ -607,7 +619,7 @@ def init_run_state(net: CECNetwork, phi0, min_scale: float = 0.05,
     else:
         nbrs = buckets = None
     fl0, T0 = flows_carry_and_cost(net, phi0, method, nbrs=nbrs,
-                                   buckets=buckets)
+                                   buckets=buckets, mesh=mesh)
     fault_state = guard_state = None
     if fault_plan is not None:
         fault_state = init_fault_state(net, phi0, fl0, fault_plan,
@@ -621,7 +633,7 @@ def init_run_state(net: CECNetwork, phi0, min_scale: float = 0.05,
                     min_scale=min_scale, rng=rng, flows=fl0,
                     buckets=buckets, fault_plan=fault_plan,
                     fault_state=fault_state, guard_cfg=guards,
-                    guard_state=guard_state, active=active)
+                    guard_state=guard_state, active=active, mesh=mesh)
 
 
 def _async_masks(gen: torch.Generator, net: CECNetwork, async_frac: float):
@@ -686,7 +698,8 @@ def _entry_flows(net: CECNetwork, state: RunState) -> FlowsCarry:
     if state.flows is not None:
         return state.flows
     fl, _ = flows_carry_and_cost(net, state.phi, state.method,
-                                 nbrs=state.nbrs, buckets=state.buckets)
+                                 nbrs=state.nbrs, buckets=state.buckets,
+                                 mesh=state.mesh)
     return fl
 
 
@@ -759,7 +772,7 @@ def run_chunk(net: CECNetwork, state: RunState, n_iters: int,
         out = _sgp_step_flows_impl(
             net, phi, fl, consts, mask_data=mask_d, mask_result=mask_r,
             sigma=_f32(sigma, dev), method=state.method, nbrs=state.nbrs,
-            buckets=state.buckets, active=state.active,
+            buckets=state.buckets, active=state.active, mesh=state.mesh,
             with_aux=callback is not None, **opts)
         phi_new, fl_new, cost_new = out[:3]
         new_cost = float(cost_new)   # the host driver's one sync
@@ -1036,7 +1049,8 @@ class FusedStream:
             self.net, self._phi, self._fl, self._consts, mask_data=md,
             mask_result=mr, sigma=self._sigma, nbrs=st.nbrs,
             buckets=st.buckets, active=self._active, fault_plan=self._plan,
-            fault_state=self._fs, fault_draws=self._draws, **self._o)
+            fault_state=self._fs, fault_draws=self._draws, mesh=st.mesh,
+            **self._o)
         phi_new, fl_new, cost_new = out[:3]
         if self._fs is not None:
             # a stopped carry freezes the fault carry too
@@ -1053,7 +1067,7 @@ class FusedStream:
                 _guarded_update_impl(*args, self._gs, st.nbrs,
                                      adaptive=self._adaptive,
                                      cfg=st.guard_cfg,
-                                     do_ckpt=self._do_ckpt)
+                                     do_ckpt=self._do_ckpt, mesh=st.mesh)
             for f in _GUARD_SCALARS:
                 getattr(self._gs, f).copy_(getattr(gs, f))
             rec = (cost_new, take, live, code, rolled, ck_cost)
@@ -1128,7 +1142,7 @@ class FusedStream:
                                   n_rej=self._n_rej.clone()))
         phi = self._phi if repair is None else repair(self._phi)
         fl, T0 = flows_carry_and_cost(net_new, phi, st.method, nbrs=st.nbrs,
-                                      buckets=st.buckets)
+                                      buckets=st.buckets, mesh=st.mesh)
         consts = make_consts(net_new, T0, st.min_scale)
         self._markers[-1]["T0"] = T0
         if self._fs is not None:

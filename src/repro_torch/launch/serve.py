@@ -1,4 +1,5 @@
-"""Serving driver of the port: batched decode of random prompts through
+"""Serving driver of the port: the SGP request router plans the
+pod-level dispatch, then batched decode of random prompts runs through
 `ServingEngine` on a model built from the registry.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
@@ -12,10 +13,10 @@ Mamba2 prompts must be at most `ssm_chunk` tokens long or a multiple of
 it (the JAX model path's contract); the drawn prompts (4 to 11 tokens)
 are.
 
-This is the engine half of the JAX package's `repro.launch.serve`; the
-SGP request router that opens that script (the paper's optimizer
-planning the pod-level dispatch) comes with ROADMAP item P11, the port
-of `serving/router.py`.  Weights are random, drawn from `--seed`: with
+As in the JAX package's `repro.launch.serve`, the router plans first:
+two pods of 40 and 25 tokens/s (speeds 1.0 and 0.8), one frontend, one
+class at `requests / 10` tokens/s, and prints the plan's cost and pod
+utilizations.  Weights are random, drawn from `--seed`: with
 numpy at the reduced size (`models.module.init`, the stream the tests
 share with the JAX package), with a `torch.Generator` on the model's
 device at full width (`models.module.draw`; OLMoE's 6.9 B values would
@@ -34,7 +35,8 @@ from repro_torch import configs
 from repro_torch.convert import (lm_leaf_dtypes, lm_params_from_numpy,
                                  lm_params_from_tensors)
 from repro_torch.models import build_model, module
-from repro_torch.serving import Request, ServeConfig, ServingEngine
+from repro_torch.serving import (PodSpec, Request, RequestRouter,
+                                 ServeConfig, ServingEngine)
 
 
 def make_requests(n: int, vocab: int, seed: int, lo: int = 4,
@@ -85,6 +87,16 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
+
+    # the pod-level dispatch plan (the paper's optimizer as the scheduler)
+    pods = [PodSpec(capacity=40.0, speed=1.0),
+            PodSpec(capacity=25.0, speed=0.8)]
+    router = RequestRouter(pods, n_frontends=1, classes={"gen": 1.0},
+                           demand=np.array([[args.requests / 10.0]]),
+                           device=args.device)
+    plan = router.plan()
+    print(f"router: cost={plan['total_cost']:.3f} "
+          f"pod_util={np.round(plan['pod_utilization'], 3)}", flush=True)
 
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))

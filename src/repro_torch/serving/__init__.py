@@ -1,4 +1,5 @@
-"""Serving layer of the port: the batched decode engine.  The SGP
-request router (`serving/router.py` of the JAX package) comes with
-ROADMAP item P11."""
+"""Serving layer of the port: the batched decode engine and the SGP
+request router (the paper's optimizer planning the pod-level
+dispatch)."""
 from .engine import Request, ServeConfig, ServingEngine
+from .router import PodSpec, RateEstimator, RequestRouter, RouterConfig

@@ -136,7 +136,8 @@ def assert_same(got, want, label):
 def test_fault_plan_and_draws():
     """The plan is hashable and validated as the reference's; the draws
     take every field every iteration in a fixed order, so arming an
-    injector shifts no other's stream; `fault_state_specs` waits for P12."""
+    injector shifts no other's stream; `fault_state_specs` names, field
+    by field, the task dimension the reference's PartitionSpecs shard."""
     a = tfaults.FaultPlan(participation_p=0.5, staleness_k=3)
     assert a == tfaults.FaultPlan(participation_p=0.5, staleness_k=3)
     assert {a: 1}[tfaults.FaultPlan(participation_p=0.5, staleness_k=3)]
@@ -158,8 +159,20 @@ def test_fault_plan_and_draws():
     assert torch.equal(one.part, all_.part) and torch.equal(one.u_s,
                                                             all_.u_s)
     assert int(all_.lag.max()) <= 2 and not bool(one.drop.any())
-    with pytest.raises(NotImplementedError, match="P12"):
-        tfaults.fault_state_specs(a, "tasks")
+    def task_dim(spec):
+        return None if "tasks" not in tuple(spec) else \
+            tuple(spec).index("tasks")
+    for plan in (a, tfaults.FaultPlan(dropout_p=0.2, corrupt_p=0.1),
+                 tfaults.FaultPlan(staleness_k=2, dropout_p=0.0),
+                 tfaults.FaultPlan()):
+        got = tfaults.fault_state_specs(plan, "tasks")
+        want = jfaults.fault_state_specs(jplan(plan), "tasks")
+        assert got.gen is None and task_dim(want.rng) is None
+        assert got.n_corrupt is None and task_dim(want.n_corrupt) is None
+        for g, w in ((got.ring, want.ring), (got.held, want.held)):
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert list(g) == [task_dim(x) for x in w]
 
 
 @pytest.mark.parametrize("method", ["sparse", "dense"])

@@ -559,9 +559,29 @@ def test_invariants_and_iteration_counts():
 
 
 def test_not_implemented_and_errors():
+    """A zero-event replay on the task-sharded driver (a world of one) is
+    `run_distributed` bit for bit, and its state resumes across a rate
+    event; the options it cannot take are refused, as the reference
+    refuses them."""
     tnet, _ = nets("abilene")
-    for kw in ({"driver": "distributed"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="P12"):
+    eng = tcore.ReplayEngine(tnet, driver="distributed",
+                             invariant_checks=False)
+    phi0 = tcore.spt_phi_sparse(tnet)
+    eng.play(tcore.ChurnSchedule(events=[]), tail_iters=8)
+    _, h = tcore.run_distributed(tnet, phi0, n_iters=8, method="sparse")
+    assert eng.costs == h["costs"]
+    pd = tcore.init_distributed_state(tnet, phi0, method="sparse")
+    tcore.run_distributed_chunk(pd, 8)
+    for f in ("data", "local", "result"):
+        assert torch.equal(getattr(eng.phi, f), getattr(pd.phi, f))
+    rec = eng.rebaseline_rates(tnet.r.numpy() * 1.1, n_iters=3)
+    assert rec.kind == "routing" and eng.total_iters == 11
+    assert isinstance(eng.state, tcore.DistributedRunState)
+    for kw in ({"driver": "distributed", "bucketed": True},
+               {"driver": "distributed", "pool": tcore.TaskPool(10)},
+               {"driver": "distributed", "run_opts": {"tol": 0.1}},
+               {"mesh": object()}):
+        with pytest.raises(ValueError):
             tcore.ReplayEngine(tnet, **kw)
     with pytest.raises(ValueError, match="rng"):
         tcore.ReplayEngine(tnet, run_opts={"async_frac": 0.2})

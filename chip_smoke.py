@@ -21,14 +21,23 @@
    zero (K3; its bound counts 5 bytes a coordinate and 12 more a
    permitted one); `flash_attention` (K4) on Qwen3-0.6B's prefill,
    q [1, 16, L, 128] against k, v [1, 8, L, 128], causal, L in {17, 128,
-   333, 512}, and on OLMoE's, k, v [1, 16, L, 128], L in {17, 333, 512},
-   and `decode_attention` (K5) on their decode steps, q [8, 8, 2, 128]
-   against [8, 1024, 8, 128] caches and q [8, 16, 1, 128] against
-   [8, 1024, 16, 128], with ragged lengths from 1 to 1024, every
-   length 1, every length 1024, and one request (B = 1) of length 1024
-   (and off the path at hd 50, G = 3), all in float32 (rtol = atol =
-   2e-4) and bfloat16 (2e-2), then both captured in one CUDA graph and
-   replayed on new inputs and lengths (2e-2); `ssd_scan`
+   333, 512}, on OLMoE's, k, v [1, 16, L, 128], L in {17, 333, 512}, on
+   Qwen2-VL-7B's, q [1, 28, L, 128] against [1, 4, L, 128], L in {333,
+   512}, and on whisper-base's (8 heads, hd 64): the encoder [1, 8,
+   1500, 64] non-causal, the decoder causal at L in {333, 512} and the
+   cross attention, q [1, 8, L, 64] against k, v [1, 8, 1500, 64]
+   non-causal, L in {17, 333, 512} (off the path: hd 80 causal and on
+   cross lengths); `decode_attention` (K5) on their decode steps, q [8,
+   8, 2, 128] against [8, 1024, 8, 128] caches and q [8, 16, 1, 128]
+   against [8, 1024, 16, 128], with ragged lengths from 1 to 1024,
+   every length 1, every length 1024, and one request (B = 1) of length
+   1024, Qwen2-VL's q [8, 4, 7, 128] against [8, 1024, 4, 128] and
+   whisper's self attention q [8, 8, 1, 64] against [8, 1024, 8, 64] at
+   the ragged lengths, and its cross attention against [8, 1500, 8, 64]
+   at every length 1,500 (and off the path at hd 50, G = 3), all in
+   float32 (rtol = atol = 2e-4) and bfloat16 (2e-2), then K5, K4 and K4
+   on cross lengths captured in one CUDA graph and replayed on new
+   inputs and lengths (2e-2); `ssd_scan`
    (K6) on Mamba2-130M's prefill, x [B, L, 24, 64], dt [B, L, 24], A
    [24], B/C [B, L, 128], L in {17, 128, 256, 512} at B = 1 and L = 256
    at B = 4, float32 and bfloat16, the serve's short prompts (L 25 and
@@ -203,12 +212,33 @@
    step; then the plain versions choose the tokens and at every call
    the kernels and the witness (keys and the gmm's D reversed) take the
    same inputs, the kernels held to 1.5 times the witness's distance.
-6. Prints one `kernels` JSON line and, last, the device line.
+   Then whisper-base at full width (6 + 6 layers, 1,500 frames), the
+   same requests and settings, the engine feeding zero frame features:
+   float32 against `reference_serve_whisper.json` as in 4., then the
+   golden's random-feature record (prompts of 333 and 64 tokens
+   prefilled into two lanes on frame features from
+   RandomState(SERVE_SEED).standard_normal([2, 1500, 512]), 16 greedy
+   decode steps) under the same rule at rtol 1e-2 (rounding alone moves
+   these logits by up to ~5e-3) or, where more, three times the run's
+   own move on the features one ulp up; bfloat16 through the kernels,
+   the plain versions and the witness (keys and head dims reversed: the
+   scores of these models without qk-norm reach the hundreds) in the
+   engine and on the random features, held at 1.5 times the witness's
+   distance; per decoder layer three K4 per prefill (its self and cross
+   attention and its encoder layer's) and two K5 per decode step.  Then
+   Qwen2-VL-7B (M-RoPE): float32 at VLM_F32_LAYERS of 28 layers against
+   `reference_serve_qwen2vl.json`, bfloat16 at all 28 with weights drawn
+   on the card, one K4 per layer a prefill and one K5 a decode step,
+   held to the same witness.  Each serve prints tokens/s, prefill ms a
+   request, decode ms a step and peak memory.
+6. Prints one `kernels` JSON line (K4's and K5's launches summed over
+   the four attention serves' bfloat16 kernel runs) and, last, the
+   device line.
 
 With `--profile` it also traces one more 20-iteration run of each sparse
 path (both scenarios, default and paper options) under each driver,
 the `robust` phase's plain, faulted and guarded fused runs of each,
-and one bfloat16 serve of each of the three models, with torch.profiler
+and one bfloat16 serve of each of the five models, with torch.profiler
 and prints the device time by kernel and the device's busy share (not
 part of the checks above).
 
@@ -262,6 +292,24 @@ SSD_BOUND_CHUNK = 64
 OLMOE_ARCH = "olmoe-1b-7b"
 OLMOE_REQUESTS = 12
 OLMOE_F32_LAYERS = 4
+# the whisper serving phases: whisper-base at full width (6 + 6 layers,
+# 1,500 frames), the same seed, engine settings and request recipe, the
+# engine's zero frame features; float32 against
+# reference_serve_whisper.json, whose second record is two prompts on
+# random features decoded WHISPER_FEAT_STEPS greedy steps
+WHISPER_ARCH = "whisper-base"
+WHISPER_REQUESTS = 12
+WHISPER_FEAT_STEPS = 16
+# the random-feature record's top-5 rtol: float32 rounding alone moves
+# this random model's logits there by up to ~5e-3 (ROADMAP §3)
+WHISPER_FEAT_RTOL = 1e-2
+# the VLM serving phases: qwen2-vl-7b (M-RoPE) at full width, the same
+# seed, settings and requests; float32 at VLM_F32_LAYERS layers against
+# reference_serve_qwen2vl.json, bfloat16 at all 28, weights drawn on the
+# card
+VLM_ARCH = "qwen2-vl-7b"
+VLM_REQUESTS = 12
+VLM_F32_LAYERS = 4
 # the names of the kernels under src/repro_torch/kernels/csrc, as the
 # profiler reports them after "(anonymous namespace)::"
 PORT_KERNEL_PREFIXES = ("edge_rounds", "simplex_project", "flash_fwd",
@@ -269,6 +317,9 @@ PORT_KERNEL_PREFIXES = ("edge_rounds", "simplex_project", "flash_fwd",
 
 
 T0 = time.perf_counter()
+# the card's name and power limit as nvidia-smi reads them, set by main()
+# and printed beside every serve's memory and times
+CARD = {"nvidia_smi": None}
 
 
 def emit(record: dict) -> None:
@@ -441,6 +492,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    CARD["nvidia_smi"] = smi
     dev = torch.device("cuda")
     emit({"phase": "device", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
@@ -828,6 +880,18 @@ def main() -> int:
     # ------------------------------------------------ serving OLMoE-1B-7B
     olmoe_counts, olmoe_bf16 = olmoe_serve_checks(torch, src)
     path_launches["moe_gmm"] = olmoe_counts["moe_gmm"]
+    for k in ("flash_attention", "decode_attention"):
+        path_launches[k] += olmoe_counts[k]
+    # ----------------------------------- serving whisper-base, qwen2-vl-7b
+    whisper_counts, whisper_bf16 = whisper_serve_checks(torch, src)
+    vlm_counts, vlm_bf16 = serve_checks(
+        torch, src, VLM_ARCH, "reference_serve_qwen2vl.json", VLM_REQUESTS,
+        witness=reversed_orders, per_prefill={"flash_attention": 1},
+        per_decode={"decode_attention": 1}, f32_layers=VLM_F32_LAYERS,
+        draw="torch")
+    for counts in (whisper_counts, vlm_counts):
+        for k, v in counts.items():
+            path_launches[k] += v
     for k, v in path_launches.items():
         require(v > 0, f"kernel {k} was never launched on its path")
 
@@ -867,6 +931,10 @@ def main() -> int:
         profile_decode(torch, *mamba_bf16, label=f"serve {MAMBA_ARCH} "
                        "bfloat16")
         profile_decode(torch, *olmoe_bf16, label=f"serve {OLMOE_ARCH} "
+                       "bfloat16")
+        profile_decode(torch, *whisper_bf16, label=f"serve {WHISPER_ARCH} "
+                       "bfloat16")
+        profile_decode(torch, *vlm_bf16, label=f"serve {VLM_ARCH} "
                        "bfloat16")
     # the world of one that `task_mesh()` made: torn down here, so that
     # nothing is printed after the device line
@@ -2649,36 +2717,54 @@ def attention_kernel_checks(torch, emit_kernel):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
 
     hd = 128
-    # Qwen3-0.6B's prefill (16 heads over 8 KV heads) at four lengths,
-    # then OLMoE's (16 over 16, group size 1) at three
-    shapes = [(1, 16, 8, L, "qwen3") for L in (17, 128, 333, 512)]
-    shapes += [(1, 16, 16, L, "olmoe") for L in (17, 333, 512)]
+    # (B, H, KV, Lq, Lk, hd, causal, case): Qwen3-0.6B's prefill (16
+    # heads over 8 KV heads) at four lengths, OLMoE's (16 over 16, group
+    # size 1) at three, Qwen2-VL-7B's (28 over 4, group 7) at two; then
+    # whisper-base's (8 over 8, hd 64): the encoder over its 1,500
+    # frames, the decoder's causal self attention at two prompt lengths,
+    # and its cross attention, L prompt rows against the 1,500 frames
+    shapes = [(1, 16, 8, L, L, hd, True, f"qwen3 prefill L={L} causal")
+              for L in (17, 128, 333, 512)]
+    shapes += [(1, 16, 16, L, L, hd, True, f"olmoe prefill L={L} causal")
+               for L in (17, 333, 512)]
+    shapes += [(1, 28, 4, L, L, hd, True, f"qwen2vl prefill L={L} causal")
+               for L in (333, 512)]
+    F = 1500
+    shapes += [(1, 8, 8, F, F, 64, False,
+                f"whisper encoder F={F} non-causal")]
+    shapes += [(1, 8, 8, L, L, 64, True, f"whisper decoder L={L} causal")
+               for L in (333, 512)]
+    shapes += [(1, 8, 8, L, F, 64, False,
+                f"whisper cross L={L} against F={F}") for L in (17, 333, 512)]
     for dt in (torch.float32, torch.bfloat16):
-        for B, H, KV, L, model in shapes:
+        for B, H, KV, Lq, Lk, hd_s, causal, case in shapes:
             # the model's [B, L, heads, hd] activations, transposed views
-            q = randn(B, L, H, hd, dt=dt).transpose(1, 2)
-            k = randn(B, L, KV, hd, dt=dt).transpose(1, 2)
-            v = randn(B, L, KV, hd, dt=dt).transpose(1, 2)
-            out = flash_attention_cuda(q, k, v, causal=True)
+            q = randn(B, Lq, H, hd_s, dt=dt).transpose(1, 2)
+            k = randn(B, Lk, KV, hd_s, dt=dt).transpose(1, 2)
+            v = randn(B, Lk, KV, hd_s, dt=dt).transpose(1, 2)
+            out = flash_attention_cuda(q, k, v, causal=causal)
             torch.cuda.synchronize()
-            want = ref.flash_attention_ref(q, k, v, causal=True)
+            want = ref.flash_attention_ref(q, k, v, causal=causal)
             err, ok = allclose(torch, out, want, tol[dt])
-            require(ok, f"K4 {model} L={L} {dt}: max abs err {err} beyond "
+            require(ok, f"K4 {case} {dt}: max abs err {err} beyond "
                     f"{tol[dt]}")
-            lib_err = allclose(torch, sdpa(q, k, v, is_causal=True,
+            lib_err = allclose(torch, sdpa(q, k, v, is_causal=causal,
                                            enable_gqa=True), want, tol[dt])[0]
-            calls = (lambda: flash_attention_cuda(q, k, v, True),
-                     lambda: ref.flash_attention_ref(q, k, v, True),
-                     lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+            calls = (lambda: flash_attention_cuda(q, k, v, causal),
+                     lambda: ref.flash_attention_ref(q, k, v, causal),
+                     lambda: sdpa(q, k, v, is_causal=causal,
+                                  enable_gqa=True))
             ms, plain, lib_ms = (device_ms(torch, fn, 20) for fn in calls)
             ev_ms, ev_plain, ev_lib = (time_ms(torch, fn, 20)
                                        for fn in calls)
-            n_bytes = (2 * B * H + 2 * B * KV) * L * hd * q.element_size()
-            n_ops = 4.0 * B * H * hd * L * (L + 1) / 2
+            n_bytes = (2 * B * H * Lq + 2 * B * KV * Lk) * hd_s \
+                * q.element_size()
+            pairs = Lq * (Lq + 1) / 2 if causal else Lq * Lk
+            n_ops = 4.0 * B * H * hd_s * pairs
             bms, by = bound_ms(n_bytes, n_ops, peak[dt])
             emit({"phase": "kernel", "kernel": "flash_attention",
-                  "case": f"{model} prefill L={L} causal", "dtype": str(dt),
-                  "q": [B, H, L, hd], "kv": [B, KV, L, hd],
+                  "case": case, "dtype": str(dt),
+                  "q": [B, H, Lq, hd_s], "kv": [B, KV, Lk, hd_s],
                   "max_abs_err": err, "tol": tol[dt], "ms": ms,
                   "plain_ms": plain, "sdpa_ms": lib_ms,
                   "sdpa_ratio": ms / lib_ms,
@@ -2686,24 +2772,26 @@ def attention_kernel_checks(torch, emit_kernel):
                   "sdpa_max_abs_err": lib_err, "bound_ms": bms,
                   "bound_by": by})
             emit_kernel("flash_attention", max_abs_err=err,
-                        main=(L == 512 and dt == torch.bfloat16
-                              and model == "qwen3"), ms=ms,
+                        main=(case == "qwen3 prefill L=512 causal"
+                              and dt == torch.bfloat16), ms=ms,
                         plain_ms=plain, bound_ms=bms, bound_by=by,
                         library_ms=lib_ms)
 
-    # the other head dims and the non-causal form (not on the path): the
-    # tensor-core kernel at hd 64, the CUDA-core one for bf16 at hd 80
-    for L, hd_x, causal in ((100, 64, False), (77, 80, True)):
+    # off the path: a group of 2 at hd 64 on the tensor cores, and the
+    # CUDA-core kernel for bf16 at hd 80, causal and on cross lengths
+    for L, Lk, hd_x, causal in ((100, 100, 64, False), (77, 77, 80, True),
+                                (45, 130, 80, False)):
         q = randn(1, 4, L, hd_x, dt=torch.bfloat16)
-        k = randn(1, 2, L, hd_x, dt=torch.bfloat16)
-        v = randn(1, 2, L, hd_x, dt=torch.bfloat16)
+        k = randn(1, 2, Lk, hd_x, dt=torch.bfloat16)
+        v = randn(1, 2, Lk, hd_x, dt=torch.bfloat16)
         out = flash_attention_cuda(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err, ok = allclose(torch, out, ref.flash_attention_ref(
             q, k, v, causal=causal), 2e-2)
-        require(ok, f"K4 L={L} hd={hd_x}: max abs err {err} beyond 2e-2")
+        require(ok, f"K4 L={L} Lk={Lk} hd={hd_x}: max abs err {err} beyond "
+                "2e-2")
         emit({"phase": "kernel", "kernel": "flash_attention",
-              "case": f"L={L} hd={hd_x} causal={causal}",
+              "case": f"L={L} Lk={Lk} hd={hd_x} causal={causal}",
               "dtype": "torch.bfloat16", "max_abs_err": err})
         emit_kernel("flash_attention", max_abs_err=err)
 
@@ -2711,46 +2799,58 @@ def attention_kernel_checks(torch, emit_kernel):
     # ragged lengths from 1 to 1024 (the path's record), every length 1,
     # every length S, and a single request at S
     S = 1024
-    len_cases = (("lengths 1..1024",
-                  [1, 1024, 17, 512, 333, 1000, 64, 777]),
+    ragged = [1, 1024, 17, 512, 333, 1000, 64, 777]
+    len_cases = (("lengths 1..1024", ragged),
                  ("every length 1", [1] * 8),
                  ("every length 1024", [S] * 8),
                  ("B=1 length 1024", [S]))
-    for dt, (KV, G, model), (label, lens) in itertools.product(
-            (torch.float32, torch.bfloat16),
-            ((8, 2, "qwen3"), (16, 1, "olmoe")), len_cases):
+    # (KV, G, hd, S, lengths label, lengths, model)
+    dec_shapes = [(KV, G, hd, S, label, lens, model)
+                  for (KV, G, model), (label, lens) in itertools.product(
+                      ((8, 2, "qwen3"), (16, 1, "olmoe")), len_cases)]
+    # Qwen2-VL-7B's decode (4 KV heads, group 7), whisper-base's self
+    # attention (8, 1, hd 64) on ragged lengths and its cross attention
+    # on the 1,500 frames, every row all of them
+    dec_shapes += [(4, 7, hd, S, "lengths 1..1024", ragged, "qwen2vl"),
+                   (8, 1, 64, S, "lengths 1..1024", ragged, "whisper self"),
+                   (8, 1, 64, F, f"every length {F}", [F] * 8,
+                    "whisper cross")]
+    for dt, (KV, G, hd_s, S_c, label, lens, model) in itertools.product(
+            (torch.float32, torch.bfloat16), dec_shapes):
         B = len(lens)
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         n_pos = sum(lens)
-        mask = (torch.arange(S, device="cuda")[None]
+        mask = (torch.arange(S_c, device="cuda")[None]
                 < lengths[:, None])[:, None, None, :]
-        q = randn(B, KV, G, hd, dt=dt)
-        kc, vc = randn(B, S, KV, hd, dt=dt), randn(B, S, KV, hd, dt=dt)
+        q = randn(B, KV, G, hd_s, dt=dt)
+        kc, vc = (randn(B, S_c, KV, hd_s, dt=dt),
+                  randn(B, S_c, KV, hd_s, dt=dt))
         out = decode_attention_cuda(q, kc, vc, lengths)
         torch.cuda.synchronize()
         want = ref.decode_attention_ref(q, kc, vc, lengths)
         err, ok = allclose(torch, out, want, tol[dt])
         require(ok, f"K5 {model} {label} {dt}: max abs err {err} beyond "
                 f"{tol[dt]}")
-        qs = q.reshape(B, KV * G, 1, hd)
+        qs = q.reshape(B, KV * G, 1, hd_s)
         ks, vs = kc.transpose(1, 2), vc.transpose(1, 2)
 
         def lib():
             return sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
-        lib_err = allclose(torch, lib().reshape(B, KV, G, hd), want,
+        lib_err = allclose(torch, lib().reshape(B, KV, G, hd_s), want,
                            tol[dt])[0]
         calls = (lambda: decode_attention_cuda(q, kc, vc, lengths),
                  lambda: ref.decode_attention_ref(q, kc, vc, lengths), lib)
         ms, plain, lib_ms = (device_ms(torch, fn, 20) for fn in calls)
         ev_ms, ev_plain, ev_lib = (time_ms(torch, fn, 20) for fn in calls)
         elt = q.element_size()
-        n_bytes = (2 * n_pos * KV * hd + 2 * B * KV * G * hd) * elt + 4 * B
-        n_ops = 4.0 * hd * G * KV * n_pos
+        n_bytes = (2 * n_pos * KV * hd_s + 2 * B * KV * G * hd_s) * elt \
+            + 4 * B
+        n_ops = 4.0 * hd_s * G * KV * n_pos
         bms, by = bound_ms(n_bytes, n_ops, peak[dt])
         emit({"phase": "kernel", "kernel": "decode_attention",
-              "case": f"{model} decode B={B}, S={S}, {label}",
+              "case": f"{model} decode B={B}, S={S_c}, {label}",
               "dtype": str(dt),
-              "q": [B, KV, G, hd], "cache": [B, S, KV, hd],
+              "q": [B, KV, G, hd_s], "cache": [B, S_c, KV, hd_s],
               "positions": n_pos, "max_abs_err": err, "tol": tol[dt],
               "ms": ms, "plain_ms": plain, "sdpa_ms": lib_ms,
               "sdpa_ratio": ms / lib_ms,
@@ -2781,29 +2881,35 @@ def attention_kernel_checks(torch, emit_kernel):
         emit_kernel("decode_attention", max_abs_err=err)
 
     # K4 and K5 captured in one CUDA graph (their wrappers read no device
-    # value on the host): replays on new inputs copied into the captured
-    # tensors, new lengths too, hold against the plain versions
-    B, L = 8, 333
+    # value on the host), K4 also on whisper's cross lengths: replays on
+    # new inputs copied into the captured tensors, new lengths too, hold
+    # against the plain versions
+    B, L, S = 8, 333, 1024
     q, kc, vc = (randn(B, 8, 2, hd, dt=torch.bfloat16),
                  randn(B, S, 8, hd, dt=torch.bfloat16),
                  randn(B, S, 8, hd, dt=torch.bfloat16))
     lengths = torch.ones(B, dtype=torch.int32, device="cuda")
     qp, kp, vp = (randn(1, L, h, hd, dt=torch.bfloat16).transpose(1, 2)
                   for h in (16, 8, 8))
+    qx = randn(1, L, 8, 64, dt=torch.bfloat16).transpose(1, 2)
+    kx, vx = (randn(1, F, 8, 64, dt=torch.bfloat16).transpose(1, 2)
+              for _ in range(2))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
             decode_attention_cuda(q, kc, vc, lengths)
             flash_attention_cuda(qp, kp, vp, True)
+            flash_attention_cuda(qx, kx, vx, False)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         dec = decode_attention_cuda(q, kc, vc, lengths)
         pre = flash_attention_cuda(qp, kp, vp, True)
+        cross = flash_attention_cuda(qx, kx, vx, False)
     errs = []
     for lens in ([1, 1024, 17, 512, 333, 1000, 64, 777], [S] * B):
-        for t in (q, kc, vc, qp, kp, vp):
+        for t in (q, kc, vc, qp, kp, vp, qx, kx, vx):
             t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
         lengths.copy_(torch.tensor(lens, dtype=torch.int32))
         graph.replay()
@@ -2812,14 +2918,17 @@ def attention_kernel_checks(torch, emit_kernel):
                 ("decode_attention", dec,
                  ref.decode_attention_ref(q, kc, vc, lengths)),
                 ("flash_attention", pre,
-                 ref.flash_attention_ref(qp, kp, vp, True))):
+                 ref.flash_attention_ref(qp, kp, vp, True)),
+                ("flash_attention", cross,
+                 ref.flash_attention_ref(qx, kx, vx, False))):
             err, ok = allclose(torch, got, want, 2e-2)
             require(ok, f"{name} in a CUDA graph: max abs err {err} beyond "
                     "2e-2")
             errs.append(err)
             emit_kernel(name, max_abs_err=err)
     emit({"phase": "kernel", "kernel": "flash_attention+decode_attention",
-          "case": "captured in one CUDA graph, two replays on new inputs",
+          "case": "captured in one CUDA graph (K4 also at L=333 against "
+                  f"F={F}), two replays on new inputs",
           "dtype": "torch.bfloat16", "max_abs_err": max(errs)})
     del graph
 
@@ -3237,21 +3346,23 @@ def serve_summary(stats) -> dict:
             "decode_ms_median": dec[len(dec) // 2],
             "peak_memory_gb": stats["peak_gb"],
             "allocated_before_gb": stats["base_gb"],
-            "launches": stats["launches"]}
+            "launches": stats["launches"], "card": CARD["nvidia_smi"]}
 
 
 @contextlib.contextmanager
-def reversed_keys(torch):
+def reversed_keys(torch, dims=False):
     """Within it the plain attention (`kernels.ref`, the `attn_impl="ref"`
-    path) takes the keys and values in reverse order: the same function
-    with its float32 sums taken in another order."""
+    path) takes the keys and values in reverse order, and with `dims`
+    each score's sum over the head dim in reverse order too: the same
+    function with its float32 sums taken in another order."""
     from repro_torch.kernels import ref
+    d = -1 if dims else ()
 
     def flash(q, k, v, causal=True):
         S, g = q.shape[2], q.shape[1] // k.shape[1]
-        kf = k.float().flip(2).repeat_interleave(g, dim=1)
+        kf = k.float().flip(2).flip(d).repeat_interleave(g, dim=1)
         vf = v.float().flip(2).repeat_interleave(g, dim=1)
-        s = (q.float() @ kf.transpose(-1, -2)) * q.shape[-1] ** -0.5
+        s = (q.float().flip(d) @ kf.transpose(-1, -2)) * q.shape[-1] ** -0.5
         if causal:
             keep = torch.ones((S, S), dtype=torch.bool,
                               device=q.device).tril().flip(-1)
@@ -3260,9 +3371,9 @@ def reversed_keys(torch):
 
     def decode(q, k_cache, v_cache, lengths):
         S, hd = k_cache.shape[1], k_cache.shape[-1]
-        kf = k_cache.float().transpose(1, 2).flip(2)
+        kf = k_cache.float().transpose(1, 2).flip(2).flip(d)
         vf = v_cache.float().transpose(1, 2).flip(2)
-        s = (q.float() @ kf.transpose(-1, -2)) * hd ** -0.5
+        s = (q.float().flip(d) @ kf.transpose(-1, -2)) * hd ** -0.5
         keep = (torch.arange(S, device=q.device)[None]
                 < lengths[:, None]).flip(-1)
         s = torch.where(keep[:, None, None], s, ref.NEG_INF)
@@ -3274,6 +3385,15 @@ def reversed_keys(torch):
         yield
     finally:
         ref.flash_attention_ref, ref.decode_attention_ref = saved
+
+
+def reversed_orders(torch):
+    """`reversed_keys` with the head-dim sums reversed too: the witness
+    of the serves without qk-norm (whisper-base, Qwen2-VL-7B), whose
+    random scores reach the hundreds, so that the rounding of the q·k
+    sums, which the kernels take in their own order, moves the logits
+    more than that of the sums over the keys."""
+    return reversed_keys(torch, dims=True)
 
 
 @contextlib.contextmanager
@@ -3357,8 +3477,9 @@ def one_ulp_shift(torch, model, golden) -> float:
             cache = module.zeros(model.init_cache_specs(1, prompt.shape[1]),
                                  model.device)
             state = module.zeros(model.state_specs(), model.device)
-            rows.append(model.prefill(state, cache, prompt)[0][0,
-                                                               idx].float())
+            rows.append(model.prefill(state, cache, prompt,
+                                      *stub_feats(torch, model, 1))[0][
+                                          0, idx].float())
         worst = max(worst, float(((rows[1] - rows[0]).abs()
                                   / rows[0].abs().clamp_min(1.0)).max()))
     with torch.no_grad():
@@ -3366,32 +3487,53 @@ def one_ulp_shift(torch, model, golden) -> float:
     return worst
 
 
+def stub_feats(torch, model, batch) -> tuple:
+    """What a prefill of `batch` rows takes besides the prompt: for an
+    encoder-decoder model the engine's stub, zero frame features [batch,
+    n_enc_frames, d_model] float32; nothing for any other."""
+    cfg = model.cfg
+    if cfg.family != "encdec":
+        return ()
+    return (torch.zeros((batch, cfg.n_enc_frames, cfg.d_model),
+                        device=model.device),)
+
+
 def serve_checks(torch, src, arch, golden_name, n_requests, witness,
-                 per_prefill, per_decode):
+                 per_prefill, per_decode, f32_layers=None, draw="numpy",
+                 on_f32=None, on_bf16=None):
     """A serving phase at `arch`'s full width: float32 against the JAX
-    golden `golden_name`, then bfloat16 through the kernels, timed and
-    counted, and through the plain versions and the `witness` (a context
-    in which the plain versions take their float32 sums in another
-    order).  Returns the launch counts of the bfloat16 kernel run and
-    what --profile needs."""
+    golden `golden_name` (at `f32_layers` layers where given, as the
+    golden), then bfloat16 through the kernels, timed and counted, and
+    through the plain versions and the `witness` (a context in which the
+    plain versions take their float32 sums in another order), its
+    weights the float32 run's numpy draw (`draw="numpy"`) or drawn on
+    the card (`"torch"`).  `on_f32(model, golden)` and `on_bf16(model)`
+    run more checks on the two models.  Returns the launch counts of
+    the bfloat16 kernel run and what --profile needs."""
     from repro_torch import configs
     from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch.serve import load_model
     from repro_torch.models import build_model, module
-    from repro_torch.models.lm import LM
     golden = load_golden(src, golden_name, arch, n_requests)
     cfg = configs.get_config(arch)
+    cfg32 = cfg if f32_layers is None else cfg.replace(n_layers=f32_layers)
+    require(golden["config"] == json.loads(json.dumps(
+        {k: getattr(cfg32, k) for k in golden["config"]})),
+        f"{golden_name} names another configuration")
     t0 = time.perf_counter()
-    specs = LM(cfg, device="meta").param_specs()
+    specs = build_model(cfg32, device="meta").param_specs()
     tree = module.init(specs, SERVE_SEED)
-    emit({"phase": "serve_weights", "arch": arch,
-          "params": module.param_count(specs),
+    emit({"phase": "serve_weights", "arch": arch, "dtype": "float32",
+          "n_layers": cfg32.n_layers, "params": module.param_count(specs),
           "seconds": time.perf_counter() - t0})
     prompts = [r["prompt"] for r in golden["requests"]]
 
     # float32, TF32 off, against the JAX engine's tokens and logits
-    model = build_model(float32_config(torch, cfg))
+    model = build_model(float32_config(torch, cfg32))
     model.load_state_dict(lm_params_from_numpy(model.cfg, tree,
                                                model.device))
+    if draw != "numpy":
+        del tree
     gidx = {r["rid"]: r["top5_indices"] for r in golden["requests"]}
     seen, f32_first = {}, {}
 
@@ -3403,9 +3545,9 @@ def serve_checks(torch, src, arch, golden_name, n_requests, witness,
             idx = torch.as_tensor(gidx[req.rid][t], device=row.device)
             seen[(req.rid, t)] = row.float()[idx]
 
-    label = f"{arch} float32 serve"
+    label = f"{arch} float32 serve ({cfg32.n_layers} layers)"
     reqs, stats = serve_run(torch, model, prompts, on_token=gather)
-    check_serve_run(reqs, stats, cfg.n_layers, label, per_prefill,
+    check_serve_run(reqs, stats, cfg32.n_layers, label, per_prefill,
                     per_decode)
     worst, worst_prefill, diverged = 0.0, 0.0, []
     for r, g in zip(reqs, golden["requests"]):
@@ -3424,21 +3566,40 @@ def serve_checks(torch, src, arch, golden_name, n_requests, witness,
                     f"{r.rid} has {len(r.out)} tokens, the reference "
                     f"{len(g['tokens'])}")
     emit({"phase": "serve", "arch": arch, "dtype": "float32",
-          "vs": golden_name, "max_rel_err_top5": worst,
+          "n_layers": cfg32.n_layers, "vs": golden_name,
+          "max_rel_err_top5": worst,
           "max_rel_err_top5_prefill": worst_prefill,
           "diverged_at_near_ties": diverged,
           "one_ulp_embed_shift_top5": one_ulp_shift(torch, model, golden),
           **serve_summary(stats)})
+    if on_f32 is not None:
+        on_f32(model, golden)
     del model
     gc.collect()
     torch.cuda.empty_cache()
 
     # bfloat16, the production dtypes
-    model = build_model(cfg)
-    model.load_state_dict(lm_params_from_numpy(cfg, tree, model.device))
-    del tree
+    t0 = time.perf_counter()
+    if draw == "numpy":
+        model = build_model(cfg)
+        model.load_state_dict(lm_params_from_numpy(cfg, tree,
+                                                   model.device))
+        del tree
+    else:
+        model = load_model(cfg, SERVE_SEED, draw="torch")
+        torch.cuda.synchronize()
+        emit({"phase": "serve_weights", "arch": arch, "dtype": "bfloat16",
+              "n_layers": cfg.n_layers,
+              "params": module.param_count(model.param_specs()),
+              "draw": "torch.Generator on the card",
+              "seconds": time.perf_counter() - t0,
+              "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    # (a float32 run cut in depth gives no prefill to compare with)
     counts = bf16_serve_checks(torch, model, prompts, witness, per_prefill,
-                               per_decode, f32_first)
+                               per_decode,
+                               f32_first if f32_layers is None else {})
+    if on_bf16 is not None:
+        on_bf16(model)
     return counts, (model, prompts)
 
 
@@ -3460,21 +3621,21 @@ def float32_config(torch, cfg):
                        cache_dtype=torch.float32)
 
 
-def top5_check(torch, label, r, g, t, seen):
+def top5_check(torch, label, r, g, t, seen, tol=1e-3):
     """Step t of request r against its golden g: the logits at the
-    golden's top-5 indices to rtol 1e-3 (of max(1, |logit|)), and the
+    golden's top-5 indices to rtol `tol` (of max(1, |logit|)), and the
     token equal unless the golden's top-2 margin is under that
     tolerance.  Returns (the relative error, a record of the parting or
     None)."""
     want = torch.tensor(g["top5_values"][t])
     got = seen[(r.rid, t)].cpu()
     rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
-    require(rel <= 1e-3, f"{label}: request {r.rid} step {t}: top-5 logits "
+    require(rel <= tol, f"{label}: request {r.rid} step {t}: top-5 logits "
             f"off by rtol {rel}")
     if r.out[t] == g["tokens"][t]:
         return rel, None
     margin = g["top2_margin"][t]
-    require(margin < 1e-3 * max(1.0, abs(want[0].item())),
+    require(margin < tol * max(1.0, abs(want[0].item())),
             f"{label}: request {r.rid} step {t}: token {r.out[t]} != "
             f"{g['tokens'][t]} at top-2 margin {margin}")
     return rel, {"rid": r.rid, "step": t, "margin": margin}
@@ -3528,13 +3689,15 @@ def bf16_serve_checks(torch, model, prompts, witness, per_prefill,
     else:
         gaps = {name: logit_gap(runs[name], runs["plain"])
                 for name in ("kernels", "witness")}
-        record = {
-            "prefill_max_abs_vs_float32": {
+        record = {"same_tokens_as_plain": {
+            name: [a.out == b.out for a, b in zip(runs[name][0],
+                                                  runs["plain"][0])]
+            for name in gaps}}
+        if f32_first:
+            record["prefill_max_abs_vs_float32"] = {
                 name: max(float((rows[(rid, 0)] - row).abs().max())
                           for rid, row in f32_first.items())
-                for name, (_, rows) in runs.items()},
-            "same_tokens_as_plain": {name: [a.out == b.out for a, b in zip(
-                runs[name][0], runs["plain"][0])] for name in gaps}}
+                for name, (_, rows) in runs.items()}
     emit({"phase": "serve", "arch": arch, "dtype": "bfloat16",
           "n_layers": n_layers, "vs_plain": gaps, "forced": forced,
           "kernels_within_2e-2": gaps["kernels"]["max_abs"] <= 2e-2,
@@ -3728,6 +3891,179 @@ def olmoe_serve_checks(torch, src):
     counts = bf16_serve_checks(torch, model, prompts, reversed_sums,
                                per_prefill, per_decode, {}, forced=True)
     return counts, (model, prompts)
+
+
+def feature_run(torch, model, prompts, feats, steps):
+    """The encoder-decoder on real frame features: prompt b prefilled
+    into lane b of a fresh cache on feats[b], then `steps` greedy decode
+    steps of all lanes.  Returns ((lanes with .rid and .out, {(lane,
+    step): logits row, float32 on the host}), the launch counts)."""
+    import types
+    from repro_torch.kernels import ops
+    from repro_torch.models import module
+    dev = model.device
+    cache = module.zeros(model.init_cache_specs(len(prompts),
+                                                SERVE_CONFIG["max_len"]), dev)
+    lanes = [types.SimpleNamespace(rid=b, out=[]) for b in
+             range(len(prompts))]
+    rows = {}
+
+    def take(b, row):
+        rows[(b, len(lanes[b].out))] = row.float().cpu()
+        lanes[b].out.append(int(torch.argmax(row)))
+
+    ops.reset_launches()
+    for b, p in enumerate(prompts):
+        lane = module.tree_map(lambda c: c[:, b:b + 1], cache)
+        logits = model.prefill({}, lane, torch.as_tensor([p], device=dev),
+                               feats[b:b + 1])[0]
+        take(b, logits[0])
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                       device=dev)
+    for _ in range(steps):
+        toks = torch.tensor([[r.out[-1]] for r in lanes], device=dev)
+        logits = model.decode_step({}, cache, toks, pos)[0]
+        for b in range(len(lanes)):
+            take(b, logits[b])
+        pos += 1
+    torch.cuda.synchronize()
+    return (lanes, rows), ops.launches()
+
+
+def golden_feats(torch, golden, dev):
+    """The random-feature record's frame features:
+    RandomState(seed).standard_normal(shape) float32."""
+    import numpy as np
+    rec = golden["random_features"]
+    require(rec["seed"] == SERVE_SEED and rec["decode_steps"]
+            == WHISPER_FEAT_STEPS, "the random-feature record names "
+            "another recipe")
+    x = np.random.RandomState(rec["seed"]).standard_normal(rec["shape"])
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+def feature_launches(model, n_prefills, n_steps) -> dict:
+    """K4 once an encoder layer and twice a decoder layer a prefill, K5
+    twice a decoder layer a decode step, nothing else."""
+    from repro_torch.kernels import ops
+    want = {k: 0 for k in ops.launches()}
+    want["flash_attention"] = n_prefills * (model.n_enc + 2 * model.n_dec)
+    want["decode_attention"] = n_steps * 2 * model.n_dec
+    return want
+
+
+def whisper_feature_f32(torch, model, golden) -> None:
+    """The float32 whisper-base on the golden's random-feature record:
+    two prompts on real frame features, prefill and WHISPER_FEAT_STEPS
+    greedy steps, and the per-layer launches.  Each step's logits at
+    the golden's top-5 within rtol WHISPER_FEAT_RTOL (of max(1,
+    |logit|)) or, where more, three times the witness's largest move,
+    its token equal but at a stored top-2 near-tie under that tolerance
+    (the lane's comparison stops there).  The witness is the same run on
+    the features one ulp up (times 1 + 2^-23), printed: on
+    standard-normal features this random model's attention is nearly
+    one-hot on scores of hundreds, and float32 rounding moves its logits
+    by up to ~3e-3, the port's on the CPU as on the card up to 5.4e-3
+    from the golden at the same step (ROADMAP §3)."""
+    rec = golden["random_features"]
+    feats = golden_feats(torch, golden, model.device)
+    prompts = [r["prompt"] for r in rec["requests"]]
+    (lanes, rows), counts = feature_run(torch, model, prompts, feats,
+                                        WHISPER_FEAT_STEPS)
+    require(counts == feature_launches(model, len(prompts),
+                                       WHISPER_FEAT_STEPS),
+            f"whisper random features: launches {counts}")
+    (w_lanes, w_rows), _ = feature_run(torch, model, prompts,
+                                       feats * (1.0 + 2.0 ** -23),
+                                       WHISPER_FEAT_STEPS)
+    label = "whisper-base float32, random features"
+    seen, witness = {}, 0.0
+    for r, g in zip(lanes, rec["requests"]):
+        for t, idx in enumerate(g["top5_indices"]):
+            idx = torch.as_tensor(idx)
+            seen[(r.rid, t)] = got = rows[(r.rid, t)][idx]
+            moved = (w_rows[(r.rid, t)][idx] - got).abs()
+            witness = max(witness, float(
+                (moved / got.abs().clamp_min(1.0)).max()))
+    tol = max(WHISPER_FEAT_RTOL, 3 * witness)
+    worst, diverged = 0.0, []
+    for r, g in zip(lanes, rec["requests"]):
+        for t in range(len(g["tokens"])):
+            rel, parted = top5_check(torch, label, r, g, t, seen, tol)
+            worst = max(worst, rel)
+            if parted is not None:
+                diverged.append(parted)
+                break
+    emit({"phase": "serve", "arch": WHISPER_ARCH, "dtype": "float32",
+          "case": "random features", "vs": "reference_serve_whisper.json "
+          "random_features", "prompts": [len(p) for p in prompts],
+          "decode_steps": WHISPER_FEAT_STEPS, "max_rel_err_top5": worst,
+          "one_ulp_feature_shift_top5": witness, "rtol": tol,
+          "witness_same_tokens": [a.out == b.out for a, b in
+                                  zip(w_lanes, lanes)],
+          "diverged_at_near_ties": diverged, "launches": counts})
+
+
+def whisper_feature_bf16(torch, model, golden) -> None:
+    """The bfloat16 whisper-base on the random-feature record's inputs
+    through the kernels, the plain versions and the witness (keys and
+    head dims reversed): the kernels' logits no further from the plain run's than
+    1.5 times the witness's, in max abs and relative L2, at the prefill
+    and each step until the tokens part (`logit_gap`)."""
+    rec = golden["random_features"]
+    feats = golden_feats(torch, golden, model.device)
+    prompts = [r["prompt"] for r in rec["requests"]]
+    runs = {}
+    for name, impl, order in (
+            ("kernels", None, contextlib.nullcontext()),
+            ("plain", "ref", contextlib.nullcontext()),
+            ("witness", "ref", reversed_orders(torch))):
+        model.impl = impl
+        with order:
+            runs[name], counts = feature_run(torch, model, prompts, feats,
+                                             WHISPER_FEAT_STEPS)
+        want = (feature_launches(model, len(prompts), WHISPER_FEAT_STEPS)
+                if impl is None else {k: 0 for k in counts})
+        require(counts == want, f"whisper random features bf16, {name}: "
+                f"launches {counts}")
+    model.impl = None
+    gaps = {name: logit_gap(runs[name], runs["plain"])
+            for name in ("kernels", "witness")}
+    emit({"phase": "serve", "arch": WHISPER_ARCH, "dtype": "bfloat16",
+          "case": "random features", "vs_plain": gaps,
+          "same_tokens_as_plain": {
+              name: [a.out == b.out for a, b in zip(runs[name][0],
+                                                    runs["plain"][0])]
+              for name in gaps}})
+    for key in ("max_abs", "rel_l2"):
+        require(gaps["kernels"][key] <= 1.5 * gaps["witness"][key],
+                f"whisper random features bf16: the kernels' logits are "
+                f"{key} {gaps['kernels'][key]} from the plain versions', "
+                f"more than 1.5x the witness's {gaps['witness'][key]}")
+
+
+def whisper_serve_checks(torch, src):
+    """The whisper-base serving phases at full width: float32 against
+    `reference_serve_whisper.json` on the engine's zero frame features,
+    then on the golden's random-feature record; bfloat16 through the
+    kernels against the plain versions and the witness (keys and head
+    dims reversed), in the engine and on the random features.  Per decoder layer a
+    prefill launches K4 three times (its self and cross attention and
+    its encoder layer's: the two stacks are equally deep) and a decode
+    step K5 twice."""
+    from repro_torch import configs
+    cfg = configs.get_config(WHISPER_ARCH)
+    require(cfg.n_enc_layers == cfg.n_layers, "whisper's per-layer launch "
+            "counts need stacks of one depth")
+    golden = load_golden(src, "reference_serve_whisper.json", WHISPER_ARCH,
+                         WHISPER_REQUESTS)
+    return serve_checks(
+        torch, src, WHISPER_ARCH, "reference_serve_whisper.json",
+        WHISPER_REQUESTS, witness=reversed_orders,
+        per_prefill={"flash_attention": 3},
+        per_decode={"decode_attention": 2},
+        on_f32=lambda model, g: whisper_feature_f32(torch, model, g),
+        on_bf16=lambda model: whisper_feature_bf16(torch, model, golden))
 
 
 def profile_decode(torch, model, prompts, label, top=12):

@@ -134,9 +134,10 @@ def guard_state_from_numpy(ckpt_phi, ckpt_fl, ckpt_cost, ckpt_sigma, valid,
 
 
 def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
-    """The port's `LM` weights (a state dict for `LM.load_state_dict`) on
-    `device` (None: the card) from the JAX package's `LM.param_specs()`
-    tree as numpy arrays (`models.module.init` draws one).
+    """The port's `LM` or `EncDecLM` weights (a state dict for its
+    `load_state_dict`) on `device` (None: the card) from the JAX
+    package's `param_specs()` tree of the same model as numpy arrays
+    (`models.module.init` draws one).
 
     Layout changes, from the JAX tree to the port:
 
@@ -157,7 +158,13 @@ def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
       `conv_bx`, `conv_bB`, `conv_bC`, `A_log`, `D`, `dt_bias`, `norm`,
       `out_proj`): no reshapes;
     * `embed [vocab, d]`, `final_norm [d]` and, untied, `unembed
-      [d, vocab]` carry over as they are.
+      [d, vocab]` carry over as they are;
+    * the encoder-decoder's tree (`cfg.family == "encdec"`) keeps its
+      nesting: layer g of `enc_blocks/{ln1, mixer, ln2, ffn}` becomes
+      `enc_blocks.{g}.*` and of `dec_blocks/{ln1, self_attn, lnx,
+      cross_attn, ln2, ffn}` `dec_blocks.{g}.*` (e.g.
+      `dec_blocks.3.cross_attn.wq`), the attention matrices reshaped as
+      above; `embed`, `enc_norm`, `final_norm` and `unembed` carry over.
 
     Tensors come back float32; `load_state_dict` casts each to the
     dtype the model keeps it in: the compute dtype for the attention,
@@ -166,7 +173,7 @@ def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
     COMPUTE_DTYPE_LEAVES`); the parameter dtype for the norm scales;
     float32 for the MoE router, `A_log`, `D` and `dt_bias`."""
     dev = resolve_device(device)
-    return _lm_state_dict(cfg, tree, lambda a: _f32(a, dev))
+    return _state_dict(cfg, tree, lambda a: _f32(a, dev))
 
 
 def lm_params_from_tensors(cfg, tree: dict) -> dict:
@@ -174,16 +181,48 @@ def lm_params_from_tensors(cfg, tree: dict) -> dict:
     draws one on the card): the same layout changes, each tensor kept in
     its dtype and on its device (layers are views of the stacked
     leaves)."""
-    return _lm_state_dict(cfg, tree, lambda a: a)
+    return _state_dict(cfg, tree, lambda a: a)
+
+
+def _attn_shapes(cfg) -> dict:
+    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    return {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),
+            "wo": (H * hd, d)}
+
+
+def _state_dict(cfg, tree: dict, leaf) -> dict:
+    from .models import build_model
+    out = (_encdec_state_dict(cfg, tree, leaf) if cfg.family == "encdec"
+           else _lm_state_dict(cfg, tree, leaf))
+    expected = set(build_model(cfg, device="meta").state_dict())
+    if set(out) != expected:
+        raise ValueError(f"{cfg.name}: the tree does not match the model: "
+                         f"missing {sorted(expected - set(out))}, extra "
+                         f"{sorted(set(out) - expected)}")
+    return out
+
+
+def _encdec_state_dict(cfg, tree: dict, leaf) -> dict:
+    reshape = _attn_shapes(cfg)
+    out = {k: leaf(tree[k])
+           for k in ("embed", "enc_norm", "final_norm", "unembed")}
+    for stack in ("enc_blocks", "dec_blocks"):
+        for part, sub in tree[stack].items():
+            flat = sub.items() if isinstance(sub, dict) else [(None, sub)]
+            for name, stacked in flat:
+                for g in range(stacked.shape[0]):
+                    a = stacked[g]
+                    if name in reshape:
+                        a = a.reshape(reshape[name])
+                    key = f"{stack}.{g}.{part}"
+                    out[key if name is None else f"{key}.{name}"] = leaf(a)
+    return out
 
 
 def _lm_state_dict(cfg, tree: dict, leaf) -> dict:
-    from .models.lm import LM
     period = cfg.scan_period()
     pattern = cfg.layer_pattern()[:period]
-    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
-    reshape = {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),
-               "wo": (H * hd, d)}
+    reshape = _attn_shapes(cfg)
     out = {"embed": leaf(tree["embed"]),
            "final_norm": leaf(tree["final_norm"])}
     if "unembed" in tree:
@@ -199,20 +238,18 @@ def _lm_state_dict(cfg, tree: dict, leaf) -> dict:
                 if name in reshape:
                     a = a.reshape(reshape[name])
                 out[f"layers.{g * period + j}.{name}"] = leaf(a)
-    expected = set(LM(cfg, device="meta").state_dict())
-    if set(out) != expected:
-        raise ValueError(f"{cfg.name}: the tree does not match the model: "
-                         f"missing {sorted(expected - set(out))}, extra "
-                         f"{sorted(set(out) - expected)}")
     return out
 
 
 def lm_leaf_dtypes(model):
-    """`(path, spec) -> dtype`: the dtype `model` keeps each leaf of its
-    JAX layout tree in, for `models.module.draw`."""
+    """`(path, spec) -> dtype`: the dtype `model` (an `LM` or an
+    `EncDecLM`) keeps each leaf of its JAX layout tree in, for
+    `models.module.draw`."""
     sd = {k: v.dtype for k, v in model.state_dict().items()}
 
     def dtype_of(path, spec):
+        if path[0] in ("enc_blocks", "dec_blocks"):   # layer 0 stands in
+            return sd[".".join((path[0], "0") + path[1:])]
         if path[0] != "blocks":
             return sd[path[0]]
         return sd[f"layers.{int(path[1][len('slot_'):])}.{path[-1]}"]
@@ -220,14 +257,13 @@ def lm_leaf_dtypes(model):
 
 
 def lm_state_from_numpy(cfg, tree: dict, device=None) -> dict:
-    """The model state of the port's `LM` (its `state_specs()` tree, the
-    MoE load EMAs [n_groups, E]) on `device` (None: the card) from the
-    JAX package's `LM.state_specs()` tree as numpy arrays: the same
-    layout, float32."""
-    from .models import module
-    from .models.lm import LM
+    """The model state of the port's `LM` or `EncDecLM` (its
+    `state_specs()` tree: the MoE load EMAs [n_groups, E], or {}) on
+    `device` (None: the card) from the JAX package's `state_specs()`
+    tree of the same model as numpy arrays: the same layout, float32."""
+    from .models import build_model, module
     dev = resolve_device(device)
-    specs = LM(cfg, device="meta").state_specs()
+    specs = build_model(cfg, device="meta").state_specs()
     got = [(p, np.shape(a)) for p, a in module.leaves(tree)]
     want = [(p, s.shape) for p, s in module.leaves(specs)]
     if got != want:

@@ -90,7 +90,7 @@ _SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_launch": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
-                                   _INT, _INT, _INT] + [_LONG] * 12
+                                   _INT, _INT, _INT, _INT] + [_LONG] * 12
                                   + [_FLOAT, _INT, _PTR],
     },
     "decode_attention": {

@@ -5,7 +5,10 @@
 // and computes its function (the plain version is
 // kernels/ref.py:flash_attention_ref): o = softmax(q kᵀ / √hd) v per
 // query head, KV head = query head / (H / KV), future keys masked with
-// the finite NEG_INF = -1e30 when causal.  Scores, the softmax and the
+// the finite NEG_INF = -1e30 when causal.  Queries and keys have their
+// own lengths Sq and Sk: a non-causal launch takes any Sk (the
+// encoder-decoder's cross attention, Sq prompt rows against Sk encoder
+// frames); a causal one needs Sk = Sq.  Scores, the softmax and the
 // output accumulator are float32; the output is normalised once at the
 // end and cast once to the input type (float32 or bfloat16).
 //
@@ -49,10 +52,11 @@
 // Both walk the keys in tiles of 64 up to the diagonal when causal
 // (tiles wholly above it contribute nothing), keep a running max and
 // sum per row and rescale the accumulators by exp(m_old - m_new), and
-// mask the tail tiles of queries and keys, so any length works (the
-// Pallas wrapper asserts S % 128 == 0).  Inputs are read and the output
-// written by strides, so the model's [B, L, H, hd] activations need no
-// transpose.
+// mask the tail tiles of queries (past Sq) and keys (past Sk), so any
+// lengths work (the Pallas wrapper asserts S % 128 == 0).  The grid
+// runs over query tiles, the key loop over key tiles.  Inputs are read
+// and the output written by strides, so the model's [B, L, H, hd]
+// activations need no transpose.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,8 +112,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, Strides qs,
-                 Strides ks, Strides vs, Strides os, int H, int KV, int S,
-                 int hd, float scale, int causal) {
+                 Strides ks, Strides vs, Strides os, int H, int KV, int Sq,
+                 int Sk, int hd, float scale, int causal) {
     extern __shared__ float smem[];
     const int ldk = hd + 1;          // padded K rows: conflict-free reads
     const int ldp = kBK + 1;
@@ -132,7 +136,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int idx = tid; idx < kBQ * hd; idx += kThreads) {
         const int r = idx / hd, d = idx - r * hd, s = q0 + r;
-        Qs[idx] = s < S ? to_f(qb[s * qs.s + d]) : 0.0f;
+        Qs[idx] = s < Sq ? to_f(qb[s * qs.s + d]) : 0.0f;
     }
     if (tid < kBQ) {
         m_s[tid] = kNegInf;
@@ -144,12 +148,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < kNJ; ++j) acc[i][j] = 0.0f;
 
-    const int kv_end = causal ? min(S, q0 + kBQ) : S;
+    const int kv_end = causal ? min(Sk, q0 + kBQ) : Sk;
     for (int k0 = 0; k0 < kv_end; k0 += kBK) {
         __syncthreads();   // Q staged; the previous tile fully consumed
         for (int idx = tid; idx < kBK * hd; idx += kThreads) {
             const int c = idx / hd, d = idx - c * hd, s = k0 + c;
-            const bool ok = s < S;
+            const bool ok = s < Sk;
             Ks[c * ldk + d] = ok ? to_f(kb[s * ks.s + d]) : 0.0f;
             Vs[idx] = ok ? to_f(vb[s * vs.s + d]) : 0.0f;
         }
@@ -179,7 +183,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
                 const int c = tx + 16 * j, key = k0 + c;
-                const bool ok = key < S && (!causal || key <= q0 + r);
+                const bool ok = key < Sk && (!causal || key <= q0 + r);
                 Ps[r * ldp + c] = ok ? sc[i][j] * scale : kNegInf;
             }
         }
@@ -232,7 +236,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         const int r = ty + 16 * i, s = q0 + r;
-        if (s >= S) continue;
+        if (s >= Sq) continue;
         const float denom = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
         for (int j = 0; j < kNJ; ++j) {
@@ -244,7 +248,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int KV, int S, int hd, Strides qs,
+                   int B, int H, int KV, int Sq, int Sk, int hd, Strides qs,
                    Strides ks, Strides vs, Strides os, float scale,
                    int causal, cudaStream_t stream) {
     const size_t smem = smem_bytes(hd);
@@ -252,10 +256,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
         flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+    const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
     flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)o, qs, ks, vs, os, H, KV,
-        S, hd, scale, causal);
+        Sq, Sk, hd, scale, causal);
     return cudaGetLastError();
 }
 
@@ -415,9 +419,10 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// A tile of 64 rows [row0, row0 + 64) of a [S, HD] bf16 slab into shared
-// memory at `dst` (1024-byte aligned) by cp.async, 16 bytes a thread at a
-// time, rows past S zero-filled.  Layout: HD / 64 blocks of 64 rows x
+// A tile of 64 rows [row0, row0 + 64) of a [S, HD] bf16 slab (S: the
+// slab's length, Sq or Sk) into shared memory at `dst` (1024-byte
+// aligned) by cp.async, 16 bytes a thread at a time, rows past S
+// zero-filled.  Layout: HD / 64 blocks of 64 rows x
 // 128 bytes, 16-byte chunk c of row r at chunk c ^ (r % 8) (the 128-byte
 // swizzle wgmma reads), so both the K-major and the MN-major descriptors
 // address it.
@@ -447,8 +452,8 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
                        __nv_bfloat16* __restrict__ o, Strides qs, Strides ks,
-                       Strides vs, Strides os, int H, int KV, int S,
-                       float scale, int causal) {
+                       Strides vs, Strides os, int H, int KV, int Sq,
+                       int Sk, float scale, int causal) {
     constexpr uint32_t kTile = 64 * HD * 2;   // bytes of one 64-row tile
     constexpr int kKSteps = HD / 16, kDTiles = HD / 8;
     extern __shared__ unsigned char smem_raw[];
@@ -459,25 +464,25 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     const int g = lane >> 2, t = lane & 3;   // fragment row group, column
     // the longest query tiles first: with causal masking tile i walks
     // i + 1 key tiles, and blockIdx.z = 0 is scheduled first
-    const int n_qt = (S + 63) / 64, qt = n_qt - 1 - (int)blockIdx.z;
+    const int n_qt = (Sq + 63) / 64, qt = n_qt - 1 - (int)blockIdx.z;
     const int h = blockIdx.x, b = blockIdx.y, q0 = qt * 64;
     const int kvh = h / (H / KV);
     const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
     const __nv_bfloat16* kb = k + b * ks.b + kvh * ks.h;
     const __nv_bfloat16* vb = v + b * vs.b + kvh * vs.h;
     __nv_bfloat16* ob = o + b * os.b + h * os.h;
-    const int n_kt = causal ? qt + 1 : n_qt;
+    const int n_kt = causal ? qt + 1 : (Sk + 63) / 64;
 
     // the ring: group 0 carries Q and key tile 0, group j tile j; one
     // group is committed per tile (empty past the last) so that
     // wait_group<kStages - 2> always means "tile kt has landed"
-    load_tile<HD>(sQ, qb, qs.s, q0, S);
+    load_tile<HD>(sQ, qb, qs.s, q0, Sq);
 #pragma unroll
     for (int j = 0; j < kStages - 1; ++j) {
         if (j < n_kt) {
             const uint32_t sK = sQ + kTile * (1 + 2 * j);
-            load_tile<HD>(sK, kb, ks.s, j * 64, S);
-            load_tile<HD>(sK + kTile, vb, vs.s, j * 64, S);
+            load_tile<HD>(sK, kb, ks.s, j * 64, Sk);
+            load_tile<HD>(sK + kTile, vb, vs.s, j * 64, Sk);
         }
         cp_async_commit();
     }
@@ -498,8 +503,8 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
             const int j = kt + kStages - 1;
             if (j < n_kt) {
                 const uint32_t sK = sQ + kTile * (1 + 2 * (j % kStages));
-                load_tile<HD>(sK, kb, ks.s, j * 64, S);
-                load_tile<HD>(sK + kTile, vb, vs.s, j * 64, S);
+                load_tile<HD>(sK, kb, ks.s, j * 64, Sk);
+                load_tile<HD>(sK + kTile, vb, vs.s, j * 64, Sk);
             }
             cp_async_commit();
         }
@@ -524,7 +529,7 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
         // sc[4j + e]: row qr0 (e < 2) or qr1, key k0 + 8j + 2t + (e & 1)
         float mx0 = kNegInf, mx1 = kNegInf;
-        const bool masked = (causal && kt == qt) || k0 + 64 > S;
+        const bool masked = (causal && kt == qt) || k0 + 64 > Sk;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -535,8 +540,8 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                 s1 *= scale2;
                 if (masked) {
                     const int key = k0 + j * 8 + 2 * t + e;
-                    if (key >= S || (causal && key > qr0)) s0 = kNegInf;
-                    if (key >= S || (causal && key > qr1)) s1 = kNegInf;
+                    if (key >= Sk || (causal && key > qr0)) s0 = kNegInf;
+                    if (key >= Sk || (causal && key > qr1)) s1 = kNegInf;
                 }
                 mx0 = fmaxf(mx0, s0);
                 mx1 = fmaxf(mx1, s1);
@@ -611,10 +616,10 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < kDTiles; ++n) {
         const int d = n * 8 + 2 * t;
-        if (qr0 < S)
+        if (qr0 < Sq)
             *reinterpret_cast<uint32_t*>(ob + qr0 * os.s + d) =
                 pack_bf16(acc[4 * n] / d0, acc[4 * n + 1] / d0);
-        if (qr1 < S)
+        if (qr1 < Sq)
             *reinterpret_cast<uint32_t*>(ob + qr1 * os.s + d) =
                 pack_bf16(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
     }
@@ -622,19 +627,19 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int HD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* o, int B, int H, int KV, int S, Strides qs,
-                         Strides ks, Strides vs, Strides os, float scale,
-                         int causal, cudaStream_t stream) {
+                         void* o, int B, int H, int KV, int Sq, int Sk,
+                         Strides qs, Strides ks, Strides vs, Strides os,
+                         float scale, int causal, cudaStream_t stream) {
     const size_t smem = wgmma_smem_bytes(HD);
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_wgmma_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid(H, B, (S + 63) / 64);
+    const dim3 grid(H, B, (Sq + 63) / 64);
     flash_fwd_wgmma_kernel<HD><<<grid, kWgThreads, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, (__nv_bfloat16*)o, qs, ks, vs, os, H, KV,
-        S, scale, causal);
+        Sq, Sk, scale, causal);
     return cudaGetLastError();
 }
 
@@ -647,21 +652,24 @@ bool rows_aligned(const void* p, Strides st) {
 
 extern "C" {
 
-// q [B, H, S, hd], k and v [B, KV, S, hd], o [B, H, S, hd], each given
-// by its element strides of (batch, head, sequence) with the head dim
-// contiguous.  bf16 != 0: all four are bfloat16, else float32.  hd <=
-// 128, H a multiple of KV.  bfloat16 with hd 64 or 128, 16-byte aligned
-// pointers and strides that are multiples of 8 go to the tensor-core
-// kernel, everything else to the CUDA-core one.  Returns
+// q [B, H, Sq, hd], k and v [B, KV, Sk, hd], o [B, H, Sq, hd], each
+// given by its element strides of (batch, head, sequence) with the head
+// dim contiguous.  bf16 != 0: all four are bfloat16, else float32.  hd <=
+// 128, H a multiple of KV, Sk >= 1, and Sk = Sq when causal.  bfloat16
+// with hd 64 or 128, 16-byte aligned pointers and strides that are
+// multiples of 8 go to the tensor-core kernel, everything else to the
+// CUDA-core one.  Returns
 // cudaGetLastError() of the launch.
 int flash_attention_launch(int bf16, const void* q, const void* k,
                            const void* v, void* o, int B, int H, int KV,
-                           int S, int hd, long qsb, long qsh, long qss,
+                           int Sq, int Sk, int hd, long qsb, long qsh,
+                           long qss,
                            long ksb, long ksh, long kss, long vsb, long vsh,
                            long vss, long osb, long osh, long oss,
                            float scale, int causal, void* stream) {
-    if (B == 0 || H == 0 || S == 0) return 0;
-    if (hd > kMaxHd || KV == 0 || H % KV != 0)
+    if (B == 0 || H == 0 || Sq == 0) return 0;
+    if (hd > kMaxHd || KV == 0 || H % KV != 0 || Sk < 1
+            || (causal && Sk != Sq))
         return (int)cudaErrorInvalidValue;
     const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
         os{osb, osh, oss};
@@ -669,19 +677,19 @@ int flash_attention_launch(int bf16, const void* q, const void* k,
             && rows_aligned(k, ks) && rows_aligned(v, vs)
             && rows_aligned(o, os)) {
         if (hd == 64)
-            return (int)launch_wgmma<64>(q, k, v, o, B, H, KV, S, qs, ks,
-                                         vs, os, scale, causal,
+            return (int)launch_wgmma<64>(q, k, v, o, B, H, KV, Sq, Sk, qs,
+                                         ks, vs, os, scale, causal,
                                          (cudaStream_t)stream);
-        return (int)launch_wgmma<128>(q, k, v, o, B, H, KV, S, qs, ks, vs,
-                                      os, scale, causal,
+        return (int)launch_wgmma<128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks,
+                                      vs, os, scale, causal,
                                       (cudaStream_t)stream);
     }
     if (bf16)
-        return (int)launch<__nv_bfloat16>(q, k, v, o, B, H, KV, S, hd, qs,
-                                          ks, vs, os, scale, causal,
+        return (int)launch<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk, hd,
+                                          qs, ks, vs, os, scale, causal,
                                           (cudaStream_t)stream);
-    return (int)launch<float>(q, k, v, o, B, H, KV, S, hd, qs, ks, vs, os,
-                              scale, causal, (cudaStream_t)stream);
+    return (int)launch<float>(q, k, v, o, B, H, KV, Sq, Sk, hd, qs, ks, vs,
+                              os, scale, causal, (cudaStream_t)stream);
 }
 
 }  // extern "C"

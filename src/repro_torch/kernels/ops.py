@@ -2,7 +2,8 @@
 
 K1 `edge_rounds`, K2 `edge_rounds_bucketed` and K3 `simplex_project`
 carry the sparse engine; K4 `flash_attention` and K5 `decode_attention`
-carry the attention LM's prefill and decode; K6 `ssd_scan` carries the
+carry the attention LM's prefill and decode (and the encoder-decoder's
+encoder, decoder and cross attention); K6 `ssd_scan` carries the
 Mamba2 mixer's prefill (its decode step is plain PyTorch: the JAX package
 has no kernel for it); K7 `moe_gmm` carries the three expert products of
 the MoE FFN, in prefill and decode alike.
@@ -142,8 +143,11 @@ def simplex_project(phi, delta, M, permitted, impl: Optional[str] = None):
 
 def flash_attention(q, k, v, causal: bool = True,
                     impl: Optional[str] = None):
-    """GQA attention over a whole sequence: q [B, H, S, hd], k, v
-    [B, KV, S, hd] -> [B, H, S, hd], any S (the prefill of `LM`)."""
+    """GQA attention over a whole sequence: q [B, H, Sq, hd], k, v
+    [B, KV, Sk, hd] -> [B, H, Sq, hd], any lengths (the prefill of `LM`
+    and of `EncDecLM`'s encoder and decoder).  Sk may differ from Sq
+    only when not causal (the decoder's cross attention over the encoder
+    frames); causal with Sk != Sq raises."""
     if _pick(impl, q) == "ref":
         return _ref.flash_attention_ref(q, k, v, causal=causal)
     return flash_attention_cuda(q, k, v, causal=causal)

@@ -189,9 +189,14 @@ def _softmax_pv(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
-    """q [B, H, S, hd]; k, v [B, KV, S, hd] -> [B, H, S, hd] in q's dtype
-    (KV head of query head h: h // (H / KV))."""
+    """q [B, H, Sq, hd]; k, v [B, KV, Sk, hd] -> [B, H, Sq, hd] in q's
+    dtype (KV head of query head h: h // (H / KV)).  Not causal, Sk is
+    any length (cross attention: the softmax over all Sk keys); causal
+    needs Sk = Sq."""
     B, H, S, hd = q.shape
+    if causal and k.shape[2] != S:
+        raise ValueError(f"causal attention needs as many keys as "
+                         f"queries, got {k.shape[2]} for {S}")
     g = H // k.shape[1]
     kf = k.float().repeat_interleave(g, dim=1)
     vf = v.float().repeat_interleave(g, dim=1)

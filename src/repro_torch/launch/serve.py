@@ -5,10 +5,13 @@ pod-level dispatch, then batched decode of random prompts runs through
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --reduced --requests 12 --max-new 16 --device cpu
 
-`--arch` takes the families the port runs: the dense attention LMs
+`--arch` takes every family of the registry: the dense attention LMs
 (qwen3-0.6b and the like), the MoE LMs (olmoe-1b-7b: its router's load
 EMAs are the model state the engine threads through every call),
-mamba2-130m and the hybrid; `--full` serves at the config's full width.
+mamba2-130m, the hybrid, the VLM (qwen2-vl-7b: M-RoPE, text-only
+prompts) and the encoder-decoder (whisper-base: the engine feeds the
+stub frontend's zero frame features); `--full` serves at the config's
+full width.
 Mamba2 prompts must be at most `ssm_chunk` tokens long or a multiple of
 it (the JAX model path's contract); the drawn prompts (4 to 11 tokens)
 are.
@@ -20,8 +23,8 @@ utilizations.  Weights are random, drawn from `--seed`: with
 numpy at the reduced size (`models.module.init`, the stream the tests
 share with the JAX package), with a `torch.Generator` on the model's
 device at full width (`models.module.draw`; OLMoE's 6.9 B values would
-take minutes in numpy).  Without `--device` the model runs on the card;
-the CPU only when asked for.
+take minutes in numpy, qwen2-vl-7b's 7.6 B longer).  Without `--device`
+the model runs on the card; the CPU only when asked for.
 """
 from __future__ import annotations
 
@@ -52,7 +55,9 @@ def make_requests(n: int, vocab: int, seed: int, lo: int = 4,
 
 def load_model(cfg, seed: int, device=None, impl=None,
                draw: str = "numpy"):
-    """The port's LM on `device` with weights drawn from `seed`: with
+    """The port's model (`build_model`: an `LM`, or an `EncDecLM` for
+    the encoder-decoder family) on `device` with weights drawn from
+    `seed`: with
     numpy (`draw="numpy"`, `models.module.init`) or with a
     `torch.Generator` on the model's device, each leaf in the dtype the
     model keeps it in (`draw="torch"`, `models.module.draw`)."""

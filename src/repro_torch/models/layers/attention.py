@@ -5,7 +5,11 @@
 Prefill attention goes through `kernels.ops.flash_attention` and decode
 attention through `kernels.ops.decode_attention`: the Hopper kernels on
 the card, their plain versions on the CPU (`impl="ref"` forces the
-plain versions).  `naive_attention` is the test oracle only.
+plain versions).  `naive_attention` is the test oracle only.  The
+encoder-decoder's cross attention projects its queries from the decoder
+(`cross_q`) and its keys and values from the encoder output
+(`cross_kv`), without RoPE, as the JAX package's `models/encdec.py`
+does inline.
 
 Projection weights are the port's matrices, in the compute dtype:
 wq [d, H·hd], wk / wv [d, KV·hd], wo [H·hd, d] (`convert.py` reshapes
@@ -74,9 +78,10 @@ def naive_attention(q, k, v, causal: bool = True) -> torch.Tensor:
 
 def full_attention(q, k, v, causal: bool = True,
                    impl: Optional[str] = None) -> torch.Tensor:
-    """q [B, L, H, hd], k/v [B, L, KV, hd] -> [B, L, H, hd] through
+    """q [B, L, H, hd], k/v [B, F, KV, hd] -> [B, L, H, hd] through
     `ops.flash_attention` (K4), which reads and writes these layouts by
-    strides: the transposes are views."""
+    strides: the transposes are views.  F = L when causal; not causal, F
+    may differ (cross attention: the softmax over all F keys)."""
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, impl=impl)
     return o.transpose(1, 2)
@@ -92,6 +97,28 @@ def decode_attention(q, k_cache, v_cache, lengths,
     o = ops.decode_attention(q.reshape(B, KV, H // KV, hd), k_cache,
                              v_cache, lengths, impl=impl)
     return o.reshape(B, 1, H, hd)
+
+
+def cross_q(p, h: torch.Tensor, cfg) -> torch.Tensor:
+    """The cross attention's queries: h [B, L, D] -> [B, L, H, hd],
+    `q_norm` where the config has qk-norm, no RoPE."""
+    B, L, _ = h.shape
+    q = (h @ p["wq"]).view(B, L, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+    return q
+
+
+def cross_kv(p, enc_out: torch.Tensor, cfg):
+    """The cross attention's keys and values from the encoder output:
+    enc_out [B, F, D] -> k, v [B, F, KV, hd], `k_norm` on k where the
+    config has qk-norm, no RoPE."""
+    B, F, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).view(B, F, cfg.n_kv_heads, cfg.hd)
+    v = (enc_out @ p["wv"]).view(B, F, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    return k, v
 
 
 def out_proj(p, attn_out: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Decoder language model: the dense attention, MoE, Mamba2 (SSM) and
-hybrid families (PyTorch port of the JAX package's `models/lm.py`).
+"""Decoder language model: the dense attention, MoE, Mamba2 (SSM),
+hybrid and VLM families (PyTorch port of the JAX package's
+`models/lm.py`; the encoder-decoder family is `models/encdec.py`).
 
     LM(cfg).param_specs()                          -> spec tree (JAX layout)
     LM(cfg).state_specs()                          -> model-state spec tree
@@ -26,8 +27,11 @@ axis: engine-global).  prefill and decode_step take it and return the
 new state as new tensors; a model without MoE layers has the empty
 state {}.  After each call `metrics` holds the MoE layers'
 moe_imbalance and moe_drop_frac (means over the layers) and router_gap
-(their minimum), as 0-dim tensors.  M-RoPE and the encoder-decoder
-family raise NotImplementedError (ROADMAP queue 1).
+(their minimum), as 0-dim tensors.  A config with `mrope_sections`
+(the VLM) rotates by M-RoPE; prefill and decode feed the text
+positions to all three of its components, as the JAX package does.
+The VLM's stub vision frontend (`vis_embed`, per-component positions)
+enters only through the JAX package's training loss, not ported.
 
 `impl` steers every kernel of the model (K4 and K5 in attention, K6 in
 the Mamba prefill, K7 in the MoE FFN): None takes the Hopper kernels on
@@ -48,7 +52,7 @@ from .layers import mamba as mb
 from .layers import mlp as mlpl
 from .layers import moe as moel
 from .layers.norms import rmsnorm, rmsnorm_spec
-from .layers.rope import rope_angles
+from .layers.rope import mrope_angles, rope_angles
 
 
 def _stack(specs: dict, g: int) -> dict:
@@ -56,16 +60,6 @@ def _stack(specs: dict, g: int) -> dict:
                 ParamSpec((g,) + v.shape, ("layers",) + v.axes, v.dtype,
                           v.init, v.scale))
             for k, v in specs.items()}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder LM "
-                                  "comes later (ROADMAP queue 1, P13d)")
-    if cfg.mrope_sections:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the VLM "
-                                  "slice (ROADMAP queue 1, P13d)")
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -77,7 +71,9 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None,
                  impl: Optional[str] = None):
         super().__init__()
-        check_supported(cfg)
+        if cfg.family == "encdec":
+            raise ValueError(f"{cfg.name}: the encoder-decoder family is "
+                             "models.encdec.EncDecLM (build_model picks it)")
         self.cfg = cfg
         self.period = cfg.scan_period()
         self.n_groups = cfg.n_layers // self.period
@@ -189,6 +185,16 @@ class LM(nn.Module):
         return out
 
     # ----------------------------------------------------------- forward
+    def _angles(self, positions):
+        """positions [B, L] -> (cos, sin); under M-RoPE every component
+        takes them (text-only tokens)."""
+        cfg = self.cfg
+        if cfg.mrope_sections:
+            positions = positions[None].expand(3, *positions.shape)
+            return mrope_angles(cfg.hd, cfg.rope_theta, positions,
+                                cfg.mrope_sections)
+        return rope_angles(cfg.hd, cfg.rope_theta, positions)
+
     def _logits(self, x):
         w = self.embed.t() if self.cfg.tie_embeddings else self.unembed
         return x @ w
@@ -253,7 +259,7 @@ class LM(nn.Module):
         B, L = tokens.shape
         x = self.embed[tokens]
         positions = torch.arange(L, device=tokens.device)[None].expand(B, L)
-        cos, sin = rope_angles(cfg.hd, cfg.rope_theta, positions)
+        cos, sin = self._angles(positions)
         x, state = self._blocks(x, cos, sin, state, cache)
         x = rmsnorm(self.final_norm, x[:, -1:], cfg.norm_eps)
         return self._logits(x)[:, 0], state, cache
@@ -264,7 +270,7 @@ class LM(nn.Module):
         cache with position pos[b] of row b written)."""
         cfg = self.cfg
         x = self.embed[tokens]
-        cos, sin = rope_angles(cfg.hd, cfg.rope_theta, pos[:, None])
+        cos, sin = self._angles(pos[:, None])
         x, state = self._blocks(x, cos, sin, state, cache, pos)
         x = rmsnorm(self.final_norm, x, cfg.norm_eps)
         return self._logits(x)[:, 0], state, cache

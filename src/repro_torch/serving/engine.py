@@ -15,12 +15,17 @@ the JAX package's `serving/engine.py`, with its semantics):
 
 The model contract: `init_cache_specs(batch, max_len)`, `state_specs()`,
 `prefill(state, cache, tokens [1, L]) -> (logits [1, V], state, cache)`
-and `decode_step(state, cache, tokens [B, 1], pos [B]) -> (logits
+(an encoder-decoder model, `cfg.family == "encdec"`, also takes
+`enc_feats`: the engine passes zero frame features [1, n_enc_frames,
+d_model] float32, the JAX engine's stub, so its cross attention adds
+nothing) and `decode_step(state, cache, tokens [B, 1], pos [B]) -> (logits
 [B, V], state, cache)`, where prefill and decode write the cache
 tensors they are given in place and return the model state anew.
 Admission hands prefill views of the slot's lane, `c[:, slot:slot + 1]`
 of every cache leaf [layers, slots, ...], so it writes back exactly
-that lane: the KV cache of an attention layer, and the SSM state
+that lane: the KV cache of an attention layer (and the self and cross
+caches of an encoder-decoder layer, whose sequence extents are max_len
+and the frame count), and the SSM state
 [layers, slots, H, N, P] and the three conv tails [layers, slots, 3,
 width] of a Mamba2 layer, which its prefill overwrites whole (the
 lock-step decode leaves garbage in idle lanes).  `pos` matters to
@@ -98,6 +103,11 @@ class ServingEngine:
             mstate = module.zeros(specs, self.device)
         self.mstate = mstate
         self._state_lane = _state_lane_axes(model, mstate)
+        # the stub frontend's frame features of an encoder-decoder model
+        mcfg = getattr(model, "cfg", None)
+        self._feats = ((1, mcfg.n_enc_frames, mcfg.d_model)
+                       if getattr(mcfg, "family", None) == "encdec"
+                       else None)
         self.cache = module.zeros(
             model.init_cache_specs(cfg.max_slots, cfg.max_len), self.device)
         self.pos = np.zeros((cfg.max_slots,), np.int32)
@@ -126,7 +136,12 @@ class ServingEngine:
                 lambda c, ax: c if ax < 0 else c[_lane_index(c.ndim, ax,
                                                              slot)],
                 self.mstate, self._state_lane)
-        logits, ms_new, _ = self.model.prefill(ms, lane, prompt)
+        if self._feats is not None:
+            feats = torch.zeros(self._feats, dtype=torch.float32,
+                                device=self.device)
+            logits, ms_new, _ = self.model.prefill(ms, lane, prompt, feats)
+        else:
+            logits, ms_new, _ = self.model.prefill(ms, lane, prompt)
         if self._state_lane is None:
             self.mstate = ms_new
         else:

@@ -158,10 +158,20 @@ def test_configs_copy_over(arch):
                 assert a == b, (arch, get, f.name)
 
 
-@pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-7b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(configs.get_reduced(arch), device="cpu")
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_every_family_builds(arch):
+    """Every architecture of the registry builds at full width (on the
+    meta device): an `EncDecLM` for the encoder-decoder family, else an
+    `LM`, with the parameter count of the JAX package's model."""
+    from repro.models import build_model as j_build_model
+    from repro_torch.models import EncDecLM, LM
+    cfg = configs.get_config(arch)
+    model = build_model(cfg, device="meta")
+    assert isinstance(model, EncDecLM if cfg.family == "encdec" else LM)
+    specs = model.param_specs()
+    n = sum(t.numel() for t in model.state_dict().values())
+    assert n == module.param_count(specs) == jmodule.param_count(
+        j_build_model(jconfigs.get_config(arch)).param_specs())
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "olmoe-1b-7b",

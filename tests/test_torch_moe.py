@@ -486,8 +486,8 @@ def test_lm_prefill_and_decode_match_reference(pair):
 
 def test_hybrid_jamba_matches_reference():
     """Reduced jamba (one period of 8 layers: Mamba2 and attention
-    mixers, dense and MoE FFNs, four MoE slots of state) passes
-    `check_supported`; one prompt of 16 tokens (the chunk) into each of
+    mixers, dense and MoE FFNs, four MoE slots of state) builds; one
+    prompt of 16 tokens (the chunk) into each of
     two lanes and two decode steps agree with the JAX LM: the load EMAs
     to 1e-5 (the same routing), the logits to 1e-5 or, where more, to
     three times the port's own move under a one-ulp change of its

@@ -297,8 +297,8 @@ def _record(engine, prefill=None, decode=None):
         state_specs = model.state_specs
 
         @staticmethod
-        def prefill(*args):
-            out = prefill_fn(*args)
+        def prefill(*args, **kw):
+            out = prefill_fn(*args, **kw)
             last["logits"] = np.asarray(out[0])
             return out
 

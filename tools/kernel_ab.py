@@ -19,7 +19,10 @@ device time with the source's library and with each variant's swapped
 in, in the order source, variants, variants reversed, source:
 
 * K4: Qwen3-0.6B's and OLMoE's bf16 causal prefill at L in {17, 128,
-  333, 512}, beside PyTorch's scaled_dot_product_attention;
+  333, 512}, Qwen2-VL-7B's at 512, whisper-base's encoder (1,500
+  frames, non-causal), decoder (causal, 512) and cross attention (333
+  rows against the 1,500 frames), beside PyTorch's
+  scaled_dot_product_attention;
 * K5: their bf16 decode at B = 8, S = 1024 with ragged lengths, every
   length 1024 and every length 1, and B = 1 at 1024, plus float32
   ragged, beside scaled_dot_product_attention; with --split-max also
@@ -65,8 +68,13 @@ ROOT = os.path.dirname(HERE)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-PREFILL = [(16, 8, L, "qwen3") for L in (17, 128, 333, 512)]
-PREFILL += [(16, 16, L, "olmoe") for L in (333, 512)]
+# (H, KV, Lq, Lk, hd, causal, model)
+PREFILL = [(16, 8, L, L, 128, True, "qwen3") for L in (17, 128, 333, 512)]
+PREFILL += [(16, 16, L, L, 128, True, "olmoe") for L in (333, 512)]
+PREFILL += [(28, 4, 512, 512, 128, True, "qwen2vl"),
+            (8, 8, 1500, 1500, 64, False, "whisper encoder"),
+            (8, 8, 512, 512, 64, True, "whisper decoder"),
+            (8, 8, 333, 1500, 64, False, "whisper cross")]
 RAGGED = [1, 1024, 17, 512, 333, 1000, 64, 777]
 DECODE = [("bf16", 8, 2, "qwen3", "ragged", RAGGED),
           ("bf16", 8, 2, "qwen3", "every length 1024", [1024] * 8),
@@ -210,16 +218,20 @@ def main() -> int:
 def attention_ab(torch, cs, ref, dmod, decode_attention_cuda,
                  flash_attention_cuda, sdpa, randn, ab, only, split_max):
     """K4 and K5 at their path shapes, beside SDPA."""
-    for H, KV, L, model in PREFILL if "flash_attention" in only else ():
-        q, k, v = (randn(1, L, h, 128, dt=torch.bfloat16).transpose(1, 2)
-                   for h in (H, KV, KV))
-        want = ref.flash_attention_ref(q, k, v, True)
+    for H, KV, Lq, Lk, hd, causal, model in (
+            PREFILL if "flash_attention" in only else ()):
+        q = randn(1, Lq, H, hd, dt=torch.bfloat16).transpose(1, 2)
+        k, v = (randn(1, Lk, KV, hd, dt=torch.bfloat16).transpose(1, 2)
+                for _ in range(2))
+        want = ref.flash_attention_ref(q, k, v, causal)
         times = ab("flash_attention",
-                   lambda: flash_attention_cuda(q, k, v, True), want, 2e-2)
-        lib = cs.device_ms(torch, lambda: sdpa(q, k, v, is_causal=True,
+                   lambda: flash_attention_cuda(q, k, v, causal), want,
+                   2e-2)
+        lib = cs.device_ms(torch, lambda: sdpa(q, k, v, is_causal=causal,
                                                enable_gqa=True), 30)
         print(json.dumps({"kernel": "flash_attention", "model": model,
-                          "L": L, "ms": times, "sdpa_ms": lib}), flush=True)
+                          "L": Lq, "Lk": Lk, "hd": hd, "causal": causal,
+                          "ms": times, "sdpa_ms": lib}), flush=True)
 
     S = 1024
     split_maxes = [int(x) for x in split_max.split(",") if x]

@@ -231,8 +231,48 @@
    on the card, one K4 per layer a prefill and one K5 a decode step,
    held to the same witness.  Each serve prints tokens/s, prefill ms a
    request, decode ms a step and peak memory.
-6. Prints one `kernels` JSON line (K4's and K5's launches summed over
-   the four attention serves' bfloat16 kernel runs) and, last, the
+6. The `train` phase (`"phase": "train"` records, ~55 s; it runs after
+   the `router` phase and before the serves of 4. and 5., whose models
+   stay in memory for --profile): K4's backward
+   (`flash_attention_bwd.cu`, three launches a call) against the
+   gradient of K4's plain version under autograd at the training
+   shapes, Qwen3-0.6B's q [8, 16, 512, 128] against [8, 8, 512, 128]
+   causal on packed segments, Qwen2-VL-7B's [2, 28, 512, 128] against [2,
+   4, 512, 128] (G = 7), whisper-base's encoder [8, 8, 1500, 64], decoder
+   [8, 8, 128, 64] causal on packed segments and cross attention at L
+   in {17, 333, 512} against 1,500 frames, float32
+   to K4_BWD_RTOL of each gradient's largest magnitude and bfloat16
+   within 1.5x the witness's bfloat16 ulps (keys and head dims
+   reversed), each call twice bit for bit, the forward it takes (output,
+   float32 output, log-sum-exp) held against the plain version; K7's
+   backward (two more K7
+   launches: dx = K7(dy, wᵀ), dw = K7(xᵀ, dy)) at OLMoE's [64, C, 2048]
+   @ [64, 2048, 1024], C 80 (40 of 64 experts active) and 640, float32
+   to 1e-5 of Σ|·| and bfloat16 by the same ulp rule; each record with
+   ms, the bound, the plain version's ms and, as yardsticks, SDPA's
+   forward + backward or two torch.bmm calls.  Then the training path,
+   `train.build_train_step` over `LM.loss` / `EncDecLM.loss` at full
+   width: Qwen3-0.6B in float32 at 4 of 28 layers, 3 AdamW steps of 2 x
+   128 packed tokens, the losses, gradient norms and learning rates held
+   to the JAX train step's (`reference_train.json`) at TRAIN_F32_RTOL;
+   Qwen3-0.6B in bfloat16 (28 layers, 4 steps of 8 x 512), OLMoE-1B-7B
+   (2 layers, 2 steps, `moe_ep_scatter` off and on) and whisper-base (2
+   steps of 8 x 128 tokens on 1,500 random frames) through the kernels,
+   the plain versions and three witnesses, each gap held on its own
+   within 1.5x the largest witness gap from plain (`train_gap_rule`):
+   step 1's loss in every run, the later steps' losses and gradient
+   norms with Qwen3, Qwen3's step-1 gradient leaf by leaf
+   (`leaf_gap_rule`); whisper-base's and OLMoE's step-1 gradient in
+   float32 (`f32_step1_check`: loss, norm and leaves), where rounding
+   neither saturates whisper's softmax into flips nor flips OLMoE's
+   routes; each
+   kernel run launches K4 twice a layer a step (the remat recomputes
+   it), K4's backward once, with MoE K7 and its backward six times a
+   layer a step, and calls no plain version.  Prints ms a step, tokens/s,
+   the host's idle share and peak memory.
+7. Prints one `kernels` JSON line (K4's and K5's launches summed over
+   the four attention serves' bfloat16 kernel runs and the train
+   phase's, K4's and K7's backward the train phase's) and, last, the
    device line.
 
 With `--profile` it also traces one more 20-iteration run of each sparse
@@ -310,10 +350,42 @@ WHISPER_FEAT_RTOL = 1e-2
 VLM_ARCH = "qwen2-vl-7b"
 VLM_REQUESTS = 12
 VLM_F32_LAYERS = 4
+# the train phase: Qwen3-0.6B at full width in float32 at TRAIN_F32_LAYERS
+# of 28 layers, TRAIN_F32_STEPS steps of TRAIN_F32_BATCH x TRAIN_F32_SEQ
+# packed tokens under AdamW at TRAIN_OPT, against the JAX train step's
+# losses, gradient norms and learning rates (reference_train.json,
+# tests/test_torch_train.py --write-golden); then bfloat16 through the
+# kernels against the plain versions and a witness: Qwen3-0.6B (28
+# layers) TRAIN_BF16_STEPS steps of TRAIN_BF16_BATCH x TRAIN_BF16_SEQ,
+# OLMoE-1B-7B at TRAIN_MOE_LAYERS layers and whisper-base (decoder
+# sequence TRAIN_ENCDEC_SEQ against 1,500 frames), each a few steps
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_SEED = 0
+TRAIN_F32_LAYERS = 4
+TRAIN_F32_BATCH, TRAIN_F32_SEQ, TRAIN_F32_STEPS = 2, 128, 3
+TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 2, "decay_steps": 100}
+# float32 rounding alone (the golden's witness: the JAX run from weights
+# one ulp up) moves these losses by ~1e-7 and the gradient norms by
+# ~1e-7 relative; the kernels' sums in another order stay well inside
+TRAIN_F32_RTOL = 1e-4
+TRAIN_BF16_BATCH, TRAIN_BF16_SEQ, TRAIN_BF16_STEPS = 8, 512, 4
+TRAIN_MOE_ARCH = "olmoe-1b-7b"
+TRAIN_MOE_LAYERS, TRAIN_MOE_STEPS = 2, 2
+TRAIN_ENCDEC_ARCH = "whisper-base"
+TRAIN_ENCDEC_SEQ, TRAIN_ENCDEC_STEPS = 128, 2
+# K4's backward in float32 against the plain version's gradient: of each
+# gradient's largest magnitude (measured ~2e-6)
+K4_BWD_RTOL = 1e-4
+# K4's training forward against its plain version: the output at the
+# serving checks' tolerances (allclose: atol = rtol), the float32 output
+# and the log-sum-exp (a float32 function of the same inputs in both
+# dtypes; ~1e-6 measured) at K4_STATS_TOL
+K4_FWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+K4_STATS_TOL = 1e-5
 # the names of the kernels under src/repro_torch/kernels/csrc, as the
 # profiler reports them after "(anonymous namespace)::"
 PORT_KERNEL_PREFIXES = ("edge_rounds", "simplex_project", "flash_fwd",
-                        "decode_split", "ssd_scan", "gmm_")
+                        "bwd_", "decode_split", "ssd_scan", "gmm_")
 
 
 T0 = time.perf_counter()
@@ -866,6 +938,12 @@ def main() -> int:
           "seconds": time.perf_counter() - t_router})
     gc.collect()
     torch.cuda.empty_cache()
+    # ------------------------------------------------------ train phase
+    # before the serves, which keep their models for --profile; its
+    # launches join the path's after them
+    trained = train_phase(torch, src, headline)
+    gc.collect()
+    torch.cuda.empty_cache()
     # ------------------------------------- serving Qwen3-0.6B, Mamba2-130M
     serve_counts, serve_bf16 = serve_checks(
         torch, src, SERVE_ARCH, "reference_serve.json", SERVE_REQUESTS,
@@ -892,6 +970,8 @@ def main() -> int:
     for counts in (whisper_counts, vlm_counts):
         for k, v in counts.items():
             path_launches[k] += v
+    for k, v in trained.items():
+        path_launches[k] = path_launches.get(k, 0) + v
     for k, v in path_launches.items():
         require(v > 0, f"kernel {k} was never launched on its path")
 
@@ -913,7 +993,15 @@ def main() -> int:
                "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                             "src/repro/kernels/ssd_scan.py:80"),
                "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
-                           "src/repro/kernels/moe_gmm.py:35")}
+                           "src/repro/kernels/moe_gmm.py:35"),
+               # the backward of K4 (its own source) and of K7 (two more
+               # launches of K7's kernel): the JAX package differentiates
+               # the functions the two TPU kernels compute
+               "flash_attention_bwd": (
+                   "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_attention.py:68"),
+               "moe_gmm_bwd": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
+                               "src/repro/kernels/moe_gmm.py:35")}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k][0],
          "replaces": sources[k][1], "launches": path_launches[k],
@@ -3350,23 +3438,25 @@ def serve_summary(stats) -> dict:
 
 
 @contextlib.contextmanager
-def reversed_keys(torch, dims=False):
+def reversed_keys(torch, dims=False, keys=True):
     """Within it the plain attention (`kernels.ref`, the `attn_impl="ref"`
     path) takes the keys and values in reverse order, and with `dims`
     each score's sum over the head dim in reverse order too: the same
-    function with its float32 sums taken in another order."""
+    function with its float32 sums taken in another order (segment ids
+    too, and differentiable: the training witness).  keys=False leaves
+    the keys in order (with `dims`: the head dims alone reversed)."""
     from repro_torch.kernels import ref
     d = -1 if dims else ()
+    kd = 2 if keys else ()
 
-    def flash(q, k, v, causal=True):
+    def flash(q, k, v, causal=True, segment_ids=None):
         S, g = q.shape[2], q.shape[1] // k.shape[1]
-        kf = k.float().flip(2).flip(d).repeat_interleave(g, dim=1)
-        vf = v.float().flip(2).repeat_interleave(g, dim=1)
+        kf = k.float().flip(kd).flip(d).repeat_interleave(g, dim=1)
+        vf = v.float().flip(kd).repeat_interleave(g, dim=1)
         s = (q.float().flip(d) @ kf.transpose(-1, -2)) * q.shape[-1] ** -0.5
-        if causal:
-            keep = torch.ones((S, S), dtype=torch.bool,
-                              device=q.device).tril().flip(-1)
-            s = torch.where(keep, s, ref.NEG_INF)
+        keep = ref.attention_mask(S, causal, segment_ids, q.device)
+        if keep is not None:
+            s = torch.where(keep.flip(-1) if keys else keep, s, ref.NEG_INF)
         return ref._softmax_pv(s, vf).to(q.dtype)
 
     def decode(q, k_cache, v_cache, lengths):
@@ -3394,6 +3484,40 @@ def reversed_orders(torch):
     sums, which the kernels take in their own order, moves the logits
     more than that of the sums over the keys."""
     return reversed_keys(torch, dims=True)
+
+
+@contextlib.contextmanager
+def split_p(torch, parts=2):
+    """Within it the plain attention carries its probabilities P into
+    the product with V as `parts` bfloat16 parts (P = p1 + p2 + ...,
+    each the bfloat16 rounding of what the earlier parts leave), all
+    else float32, as K4's bfloat16 forward feeds P to its tensor-core
+    product; segment ids taken, differentiable (the casts pass the
+    gradient on, so the backward is the plain one)."""
+    from repro_torch.kernels import ref
+
+    def flash(q, k, v, causal=True, segment_ids=None):
+        S, g = q.shape[2], q.shape[1] // k.shape[1]
+        kf = k.float().repeat_interleave(g, dim=1)
+        vf = v.float().repeat_interleave(g, dim=1)
+        s = (q.float() @ kf.transpose(-1, -2)) * q.shape[-1] ** -0.5
+        keep = ref.attention_mask(S, causal, segment_ids, q.device)
+        if keep is not None:
+            s = torch.where(keep, s, ref.NEG_INF)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        acc, rest = 0.0, p
+        for _ in range(parts):
+            piece = rest.to(torch.bfloat16).float()
+            acc = acc + piece @ vf
+            rest = rest - piece
+        return (acc / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
+
+    saved = ref.flash_attention_ref
+    ref.flash_attention_ref = flash
+    try:
+        yield
+    finally:
+        ref.flash_attention_ref = saved
 
 
 @contextlib.contextmanager
@@ -4091,6 +4215,734 @@ def profile_decode(torch, model, prompts, label, top=12):
           # the port's own kernels (csrc/), wherever they rank
           "port_kernels": [{"kernel": k[:80], "ms": ms, "calls": n}
                            for k, ms, n in rows if port_prefix(k)]})
+
+
+# ------------------------------------------------------------ train phase
+def grads_of(torch, fn, ins, cot):
+    """(fn(*ins), the gradients of Σ fn(*ins)·cot with respect to `ins`),
+    each input a fresh leaf."""
+    leaves = [t.detach().requires_grad_() for t in ins]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, cot)
+    return out.detach(), grads
+
+
+def bf16_ulps(torch, got, plain, floor=2.0 ** -6):
+    """The largest distance of `got` from `plain` (both bfloat16) in units
+    of the bfloat16 ulp at |plain|, the ulp floored at that of floor ·
+    max|plain| (near zero, float32 cancellation rather than the final
+    rounding sets the distance)."""
+    p = plain.float().abs()
+    mag = torch.clamp_min(p, floor * float(p.max()))
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got.float() - plain.float()).abs() / ulp).max())
+
+
+def witness_check(torch, label, got, plain, wit, factor=1.5):
+    """bfloat16: `got` no further from `plain` than `factor` times the
+    witness `wit` (the plain version with its float32 sums in another
+    order), in bfloat16 ulps (`bf16_ulps`): two float32-accurate results
+    round to at most one ulp apart, so max-abs distances, which an ulp's
+    binade scales, would compare a witness's flip in one binade with the
+    kernel's in the next.  Returns (ulps, witness ulps, max abs)."""
+    d, w = bf16_ulps(torch, got, plain), bf16_ulps(torch, wit, plain)
+    require(d <= factor * max(w, 1.0), f"{label}: {d} ulps from plain, "
+            f"beyond {factor} x the witness's {w}")
+    return d, w, float((got.float() - plain.float()).abs().max())
+
+
+def k4_forward_check(torch, label, q, k, v, causal, seg, out, lse, o32):
+    """K4's training forward (`return_lse=True`) against its plain
+    version: `out` against `flash_attention_ref` (allclose at K4_FWD_TOL
+    of its dtype), the float32 output `o32` and the rows' log-sum-exp
+    `lse` against the plain version in float32 on the same (exactly
+    widened) inputs at K4_STATS_TOL.  Returns the three max abs errors."""
+    from repro_torch.kernels import ref
+    errs = {}
+    tol = K4_FWD_TOL[str(q.dtype).removeprefix("torch.")]
+    err, ok = allclose(torch, out, ref.flash_attention_ref(
+        q, k, v, causal, seg), tol)
+    require(ok, f"{label} out: max abs err {err} beyond {tol}")
+    errs["out"] = err
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    g = q.shape[1] // k.shape[1]
+    s = (qf @ kf.repeat_interleave(g, dim=1).transpose(-1, -2)) \
+        * q.shape[-1] ** -0.5
+    keep = ref.attention_mask(q.shape[2], causal, seg, q.device)
+    if keep is not None:
+        s = torch.where(keep, s, ref.NEG_INF)
+    for name, got, want in (
+            ("o32", o32, ref.flash_attention_ref(qf, kf, vf, causal, seg)),
+            ("lse", lse, torch.logsumexp(s, dim=-1))):
+        err, ok = allclose(torch, got, want, K4_STATS_TOL)
+        require(ok, f"{label} {name}: max abs err {err} beyond "
+                f"{K4_STATS_TOL}")
+        errs[name] = err
+    return errs
+
+
+def k4_bwd_checks(torch, emit_kernel):
+    """K4's backward (`flash_attention_bwd_cuda`, three launches a call)
+    against the gradient of its plain version under autograd, at the
+    training path's shapes: Qwen3-0.6B's q [8, 16, 512, 128] against
+    k, v [8, 8, 512, 128] causal on packed segments (`packed_batches`,
+    documents of mean 512 tokens), Qwen2-VL-7B's q [2, 28, 512, 128]
+    against [2, 4, 512, 128] (G = 7) causal on packed segments, and
+    whisper-base's (hd 64): the encoder [8, 8, 1500, 64] non-causal, the
+    decoder's self attention [8, 8, 128, 64] causal on packed segments
+    (the train phase's whisper batch) and the cross attention, q [8, 8,
+    L, 64] against [8, 8, 1500, 64], L in {17, 333, 512}.  Float32 to
+    K4_BWD_RTOL of each gradient's largest magnitude; bfloat16 no
+    further from plain than 1.5x the witness (the plain version with its
+    keys and head dims reversed), in bfloat16 ulps (`witness_check`).
+    The forward that the backward takes is held too: its output against
+    `flash_attention_ref` (the serving checks' K4_FWD_TOL), its float32
+    output and its log-sum-exp against the plain version's in float32
+    (K4_STATS_TOL).  Timed: the
+    backward (ms), K4's forward with its log-sum-exp plus the backward
+    (fwd_bwd_ms), the plain version's forward + backward under autograd
+    (plain_ms, and its backward alone), and SDPA's forward + backward on
+    the same inputs (a yardstick: with the segments as a boolean mask).
+    Every time by CUDA events around back-to-back calls: a call takes
+    milliseconds, and the profiler, which keeps only part of its windows
+    late in a full run, would retake each window five times."""
+    from repro_torch.data import DataConfig, packed_batches
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    peak = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
+
+    def segments(B, S):
+        b = next(packed_batches(DataConfig(vocab=1000, seq_len=S,
+                                           global_batch=B, seed=TRAIN_SEED)))
+        return torch.as_tensor(b["segment_ids"], device="cuda")
+
+    F = 1500
+    shapes = [(8, 16, 8, 512, 512, 128, True, True,
+               "qwen3 train [8,16,512,128] causal packed")]
+    shapes += [(2, 28, 4, 512, 512, 128, True, True,
+                "qwen2vl train [2,28,512,128] G=7 causal packed")]
+    shapes += [(8, 8, 8, F, F, 64, False, False,
+                f"whisper encoder [8,8,{F},64] non-causal")]
+    shapes += [(8, 8, 8, TRAIN_ENCDEC_SEQ, TRAIN_ENCDEC_SEQ, 64, True, True,
+                f"whisper decoder [8,8,{TRAIN_ENCDEC_SEQ},64] causal "
+                "packed")]
+    shapes += [(8, 8, 8, L, F, 64, False, False,
+                f"whisper cross L={L} against F={F}") for L in (17, 333, 512)]
+    witness_fn = {}
+    with reversed_orders(torch):
+        witness_fn["flash"] = ref.flash_attention_ref
+    for dt in (torch.float32, torch.bfloat16):
+        for B, H, KV, Lq, Lk, hd, causal, packed, case in shapes:
+            q = torch.randn((B, Lq, H, hd), generator=gen,
+                            device="cuda").to(dt).transpose(1, 2)
+            k, v = (torch.randn((B, Lk, KV, hd), generator=gen,
+                                device="cuda").to(dt).transpose(1, 2)
+                    for _ in range(2))
+            do = torch.randn((B, Lq, H, hd), generator=gen,
+                             device="cuda").to(dt).transpose(1, 2)
+            seg = segments(B, Lq) if packed else None
+            out, lse, o32 = flash_attention_cuda(q, k, v, causal, seg,
+                                                 return_lse=True)
+            fwd_errs = k4_forward_check(torch, f"K4 forward {case} {dt}",
+                                        q, k, v, causal, seg, out, lse, o32)
+            got = flash_attention_bwd_cuda(do, q, k, v, o32, lse, causal, seg)
+            again = flash_attention_bwd_cuda(do, q, k, v, o32, lse, causal,
+                                             seg)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"K4 backward {case} {dt}: a second call differs")
+
+            def plain(q_, k_, v_):
+                return ref.flash_attention_ref(q_, k_, v_, causal, seg)
+            _, want = grads_of(torch, plain, (q, k, v), do)
+            errs = {}
+            if dt == torch.float32:
+                for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                    err = float((g - w).abs().max())
+                    tol = K4_BWD_RTOL * float(w.abs().max())
+                    require(err <= tol, f"K4 backward {case} {name}: max abs "
+                            f"err {err} beyond {tol}")
+                    errs[name] = err
+                wit = None
+            else:
+                _, wgrads = grads_of(torch, lambda a, b_, c: witness_fn[
+                    "flash"](a, b_, c, causal, seg), (q, k, v), do)
+                wit, ulps = {}, {}
+                for name, g, w, x in zip(("dq", "dk", "dv"), got, want,
+                                         wgrads):
+                    ulps[name], wit[name], errs[name] = witness_check(
+                        torch, f"K4 backward {case} {dt} {name}", g, w, x)
+            mask = (None if seg is None else
+                    ref.attention_mask(Lq, causal, seg, q.device))
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+
+            def lib():
+                o = (sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+                     if mask is not None else
+                     sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True))
+                o.backward(do)
+
+            def fwd_bwd():
+                _, l_, o_ = flash_attention_cuda(q, k, v, causal, seg,
+                                                 return_lse=True)
+                flash_attention_bwd_cuda(do, q, k, v, o_, l_, causal, seg)
+
+            def plain_fb():
+                grads_of(torch, plain, (q, k, v), do)
+            pq, pk, pv = (t.detach().requires_grad_() for t in (q, k, v))
+            po = plain(pq, pk, pv)
+
+            def plain_bwd():
+                torch.autograd.grad(po, (pq, pk, pv), do, retain_graph=True)
+            ms = time_ms(torch, lambda: flash_attention_bwd_cuda(
+                do, q, k, v, o32, lse, causal, seg), 10)
+            fb_ms = time_ms(torch, fwd_bwd, 10)
+            plain_ms = time_ms(torch, plain_fb, 3)
+            plain_b = time_ms(torch, plain_bwd, 3)
+            lib_ms = time_ms(torch, lib, 10)
+            del po
+            elt = q.element_size()
+            qo = B * H * Lq * hd
+            kvn = B * KV * Lk * hd
+            n_bytes = (3 * qo + 2 * kvn) * elt + (qo + 2 * kvn) * elt \
+                + 4 * B * H * Lq + (4 * B * Lq if seg is not None else 0)
+            if seg is None:
+                pairs = B * (Lq * (Lq + 1) / 2 if causal else Lq * Lk)
+            else:           # the pairs this batch's segments keep
+                pairs = float(mask.expand(B, 1, Lq, Lk).sum())
+            n_ops = 10.0 * H * hd * pairs
+            bms, by = bound_ms(n_bytes, n_ops, peak[dt])
+            rec = {"phase": "train", "kernel": "flash_attention_bwd",
+                   "case": case, "dtype": str(dt),
+                   "q": [B, H, Lq, hd], "kv": [B, KV, Lk, hd],
+                   "segments": (int(seg.max()) if seg is not None else None),
+                   "max_abs_err": errs, "forward_max_abs_err": fwd_errs,
+                   "ms": ms, "fwd_bwd_ms": fb_ms,
+                   "plain_ms": plain_ms, "plain_bwd_ms": plain_b,
+                   "sdpa_fwd_bwd_ms": lib_ms, "bound_ms": bms,
+                   "bound_by": by, "bitwise_repeat": True}
+            if wit is not None:
+                rec.update(ulps=ulps, witness_ulps=wit)
+            else:
+                rec["rtol"] = K4_BWD_RTOL
+            emit(rec)
+            emit_kernel("flash_attention_bwd", max_abs_err=max(errs.values()),
+                        main=(dt == torch.bfloat16 and case == shapes[0][-1]),
+                        ms=ms, plain_ms=plain_b, bound_ms=bms, bound_by=by,
+                        library_ms=None)
+            del q, k, v, do, out, lse, o32, got, again, want, qs, ks, vs
+    torch.cuda.empty_cache()
+
+
+def k7_bwd_checks(torch, emit_kernel):
+    """K7's backward (`moe_gmm_bwd_cuda`: dx = K7(dy, wᵀ) and dw = K7(xᵀ,
+    dy), the same kernel twice with `active`) at OLMoE's training
+    products, x [64, C, 2048] @ w [64, 2048, 1024] with C = 80 (a 512-token
+    row's capacity) and C = 640 (8 rows of 512 tokens: the train step's
+    batch), 40 of 64 experts active at C = 80, against the gradient of the
+    plain version: float32 to 1e-5 of Σ|·| per output (the sums of two
+    products over C or F), bfloat16 no further than 1.5x the witness (D
+    reversed in the plain forward).  Timed beside two torch.bmm calls
+    (dy @ wᵀ, xᵀ @ dy: a yardstick, not one call); the bound counts the
+    function's bytes (dy, x, w read, dx, dw written) without the two
+    transposes' (E·C·D + E·D·F elements read and written once more).
+    Timed by CUDA events, as `k4_bwd_checks`."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_gmm import moe_gmm_bwd_cuda
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    peak = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
+
+    def rev(x, w, active):
+        out = torch.bmm(x.float().flip(-1), w.float().flip(1))
+        return torch.where(active.bool()[:, None, None], out, 0.0).to(x.dtype)
+    for dt in (torch.float32, torch.bfloat16):
+        for E, C, D, F, n_active in ((64, 80, 2048, 1024, 40),
+                                     (64, 640, 2048, 1024, 64)):
+            x = torch.randn((E, C, D), generator=gen, device="cuda").to(dt)
+            w = (torch.randn((E, D, F), generator=gen, device="cuda")
+                 * D ** -0.5).to(dt)
+            dy = torch.randn((E, C, F), generator=gen, device="cuda").to(dt)
+            active = torch.zeros(E, dtype=torch.bool, device="cuda")
+            active[torch.randperm(E, generator=gen, device="cuda")[
+                :n_active]] = True
+            x = torch.where(active[:, None, None], x, 0).to(dt)
+            dx, dw = moe_gmm_bwd_cuda(dy, x, w, active)
+            torch.cuda.synchronize()
+            _, (px, pw) = grads_of(torch, lambda a, b: ref.moe_gmm_ref(
+                a, b, active), (x, w), dy)
+            label = f"K7 backward [{E},{C},{D}]@[{E},{D},{F}] " \
+                    f"{n_active} active {dt}"
+            if dt == torch.float32:
+                _, (ax, aw) = grads_of(torch, lambda a, b: ref.moe_gmm_ref(
+                    a, b, active), (x.abs(), w.abs()), dy.abs())
+                errs = {}
+                for name, g, want, mag in (("dx", dx, px, ax),
+                                           ("dw", dw, pw, aw)):
+                    d = (g - want).abs()
+                    errs[name] = float(d.max())
+                    require(bool((d <= 1e-5 * mag).all()),
+                            f"{label} {name}: max abs err {errs[name]} "
+                            "beyond 1e-5 of Σ|·|")
+                wit = None
+            else:
+                _, (wx, ww) = grads_of(torch, lambda a, b: rev(a, b, active),
+                                       (x, w), dy)
+                errs, wit, ulps = {}, {}, {}
+                for name, g, want, wg in (("dx", dx, px, wx),
+                                          ("dw", dw, pw, ww)):
+                    ulps[name], wit[name], errs[name] = witness_check(
+                        torch, f"{label} {name}", g, want, wg)
+            ms = time_ms(torch, lambda: moe_gmm_bwd_cuda(dy, x, w, active),
+                         10)
+            plain = time_ms(torch, lambda: grads_of(
+                torch, lambda a, b: ref.moe_gmm_ref(a, b, active), (x, w),
+                dy), 3)
+            lib_ms = time_ms(torch, lambda: (torch.bmm(dy, w.transpose(1, 2)),
+                                             torch.bmm(x.transpose(1, 2),
+                                                       dy)), 10)
+            elt = x.element_size()
+            frac = n_active / E
+            n_bytes = (E * C * F + 2 * (E * C * D + E * D * F)) * elt * frac
+            n_ops = 4.0 * n_active * C * D * F
+            bms, by = bound_ms(n_bytes, n_ops, peak[dt])
+            rec = {"phase": "train", "kernel": "moe_gmm_bwd", "case": label,
+                   "dtype": str(dt), "x": [E, C, D], "w": [E, D, F],
+                   "active": n_active, "max_abs_err": errs, "ms": ms,
+                   "plain_ms": plain, "two_bmm_ms": lib_ms,
+                   "transpose_bytes": 2 * (E * C * D + E * D * F) * elt,
+                   "bound_ms": bms, "bound_by": by}
+            if wit is not None:
+                rec.update(ulps=ulps, witness_ulps=wit)
+            emit(rec)
+            emit_kernel("moe_gmm_bwd", max_abs_err=max(errs.values()),
+                        main=(dt == torch.bfloat16 and C == 640), ms=ms,
+                        plain_ms=plain, bound_ms=bms, bound_by=by,
+                        library_ms=None)
+            del x, w, dy, dx, dw, px, pw
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def counted_plain(torch):
+    """Within it every call of K4's and K7's plain versions is counted
+    (the kernel runs of the train phase must make none)."""
+    from repro_torch.kernels import ref
+    calls = {"flash_attention_ref": 0, "moe_gmm_ref": 0}
+    saved = {name: getattr(ref, name) for name in calls}
+
+    def counting(name):
+        def fn(*a, **kw):
+            calls[name] += 1
+            return saved[name](*a, **kw)
+        return fn
+    for name in calls:
+        setattr(ref, name, counting(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(ref, name, fn)
+
+
+def train_batches(torch, cfg, batch, seq, n, seed, gen=None):
+    """n packed batches on the card (`packed_batches` at `seed`), the
+    stub frontends' inputs drawn from `gen` as the launcher draws them."""
+    from repro_torch.data import DataConfig, packed_batches
+    it = packed_batches(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                   global_batch=batch, seed=seed))
+    out = []
+    for _ in range(n):
+        b = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(it).items()}
+        if cfg.family == "encdec":
+            b["enc_feats"] = 0.02 * torch.randn(
+                (batch, cfg.n_enc_frames, cfg.d_model), generator=gen,
+                device="cuda")
+        out.append(b)
+    return out
+
+
+def train_start(torch, cfg, batch, seq, steps):
+    """The bfloat16 train runs' shared start: float32 masters drawn on
+    the card from TRAIN_SEED (`module.draw`), zero model state, and
+    `steps` packed batches (`train_batches`, the frames drawn from the
+    same generator) -> (param specs, train state, batches)."""
+    from repro_torch.models import build_model, module
+    from repro_torch.train import TrainConfig, init_train_state
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    model = build_model(cfg, device="meta")
+    specs = model.param_specs()
+    params = module.draw(specs, gen, "cuda", lambda path, spec: torch.float32)
+    mstate = module.tree_map(lambda s: torch.zeros(
+        s.shape, dtype=s.dtype, device="cuda"), model.state_specs())
+    state = init_train_state(params, mstate, TrainConfig())
+    return specs, state, train_batches(torch, cfg, batch, seq, steps,
+                                       TRAIN_SEED, gen)
+
+
+def train_witnesses(torch, moe=False):
+    """The bfloat16 train runs' witnesses, as contexts: the plain
+    versions with their float32 sums in other orders (the keys, or with
+    MoE the gmm's D and the keys; the head dims alone; keys and head dims
+    both).  Bfloat16 steps of these random models part by more than
+    rounding would suggest (whisper's first gradient norm moves by 4 %
+    between two orders), so the rule takes the largest of their gaps."""
+    return [(lambda: reversed_sums(torch)) if moe
+            else (lambda: reversed_keys(torch)),
+            lambda: reversed_keys(torch, dims=True, keys=False),
+            lambda: reversed_orders(torch)]
+
+
+def train_run(torch, cfg, impl, state, batches, opt, ctx=None):
+    """The port's train steps (`build_train_step`, a model on the meta
+    device of `impl`) from `state` over `batches` -> (per-step metrics
+    as floats, the launches, ms a step, host-idle share, peak bytes)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, build_train_step
+    step = build_train_step(build_model(cfg, device="meta", impl=impl),
+                            TrainConfig(opt=OptConfig(**opt)))
+    mets, walls, enq = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with (ctx if ctx is not None else contextlib.nullcontext()):
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            enq.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            mets.append({k: float(v) for k, v in m.items()})
+    launches = {k: v for k, v in ops.launches().items() if v}
+    # the first step builds and warms up; the rest are the steady state
+    tail = walls[1:] or walls
+    idle = sum(w - e for w, e in zip(walls[1:], enq[1:])) / max(sum(tail),
+                                                                1e-9)
+    return (mets, launches, 1e3 * sum(tail) / len(tail), idle,
+            torch.cuda.max_memory_allocated())
+
+
+def step1_grads(torch, cfg, impl, state, batch, ctx=None):
+    """Step 1's loss and gradient (`train.loss_and_grads` on a model on
+    the meta device of `impl`, within `ctx`) -> (loss, {leaf path:
+    float32 gradient}, the layers' stacked leaves one entry a layer,
+    "path[i]")."""
+    from repro_torch.models import build_model
+    from repro_torch.models.module import leaves
+    from repro_torch.train import loss_and_grads
+    with (ctx if ctx is not None else contextlib.nullcontext()):
+        loss, grads, _, _ = loss_and_grads(
+            build_model(cfg, device="meta", impl=impl), state["params"],
+            state["model_state"], batch)
+    out = {}
+    for p, g in leaves(grads):       # a stacked leaf layer by layer
+        name = "/".join(p)
+        if p[0].endswith("blocks"):
+            out.update((f"{name}[{i}]", x) for i, x in enumerate(g.float()))
+        else:
+            out[name] = g.float()
+    return float(loss), out
+
+
+def grad_norm(grads) -> float:
+    """The global norm of `step1_grads`'s leaves (float64 sums)."""
+    return float(sum(float(g.double().square().sum())
+                     for g in grads.values()) ** 0.5)
+
+
+def f32_step1_check(torch, label, cfg, batch, seq, witnesses):
+    """Step 1 of the train run of `cfg` in float32
+    (`float32_config`, `train_start`'s start and batch): the kernels'
+    loss, gradient norm (`train_gap_rule`) and gradient leaf by leaf
+    (`leaf_gap_rule`) against the plain versions', within 1.5x the
+    witnesses'.  In float32 a reordered sum moves the scores by ~1e-7
+    of their size, so the softmax and the router's top-k seldom flip and
+    the gradients stay comparable where the bfloat16 ones do not."""
+    cfg = float32_config(torch, cfg)
+    _, state, batches = train_start(torch, cfg, batch, seq, 1)
+    b = batches[0]
+    runs = [step1_grads(torch, cfg, "ref", state, b)]
+    runs += [step1_grads(torch, cfg, "ref", state, b, w())
+             for w in witnesses]
+    loss, grads = step1_grads(torch, cfg, None, state, b)
+    mets = [[{"loss": r[0], "grad_norm": grad_norm(r[1])}] for r in runs]
+    got, lim, bad = train_gap_rule(
+        [{"loss": loss, "grad_norm": grad_norm(grads)}], mets[0], mets[1:])
+    leaf, leaf_bad = leaf_gap_rule(grads, runs[0][1], [r[1] for r in runs[1:]])
+    emit({"phase": "train", "case": f"{label} float32 step 1",
+          "layers": cfg.n_layers, "batch": [batch, seq], "loss": loss,
+          "grad_norm": grad_norm(grads), "plain_loss": runs[0][0],
+          "plain_grad_norm": mets[0][0]["grad_norm"],
+          "witness_loss": [m[0]["loss"] for m in mets[1:]],
+          "witness_grad_norm": [m[0]["grad_norm"] for m in mets[1:]],
+          "gap_from_plain": {k: v[0] for k, v in got.items()},
+          "witness_limit": {k: v[0] for k, v in lim.items()},
+          "step1_leaves": leaf, "nvidia_smi": CARD["nvidia_smi"]})
+    require(not bad and not leaf_bad, f"train {label} float32 step 1: "
+            + "; ".join(bad + leaf_bad))
+    del state, batches, runs, grads
+
+
+def leaf_gap_rule(got, plain, wits, factor=1.5, floor=2.0 ** -8):
+    """Step 1's gradient leaf by leaf: each leaf of `got` no further from
+    `plain`'s (‖g − g_plain‖) than `factor` times the largest of the
+    witnesses' `wits` distances, floored at `floor` (a bfloat16 ulp) of
+    ‖g_plain‖.  A fault in one layer's gradient moves that layer's
+    leaves by their whole size, while the global norm, which one large
+    leaf may carry, hardly moves.  -> ({"worst": the leaf nearest its
+    limit, "ratio": its distance over its limit, "largest": the leaf
+    that parts most, "distance", "witness"}, the failures)."""
+    rows, bad = [], []
+    for path, gp in plain.items():
+        d = float((got[path] - gp).norm())
+        w = max([float((x[path] - gp).norm()) for x in wits]
+                + [floor * float(gp.norm())])
+        rows.append((d / w if w > 0 else float(d > 0) * float("inf"),
+                     path, d, w))
+        if d > factor * w:
+            bad.append(f"step 1 gradient {path}: {d} from plain, beyond "
+                       f"{factor} x the witnesses' {w}")
+    worst = max(rows)
+    big = max(rows, key=lambda r: r[2])
+    return {"worst": worst[1], "ratio": worst[0], "largest": big[1],
+            "distance": big[2], "witness": big[3]}, bad
+
+
+def train_gaps(mets, base):
+    """{"loss" / "grad_norm": [step 1's distance from `base`, the largest
+    over the later steps]}: step 1 is one forward and one gradient from
+    the shared start, the later steps follow each run's own updates."""
+    out = {}
+    for key in ("loss", "grad_norm"):
+        d = [abs(m[key] - b[key]) for m, b in zip(mets, base)]
+        out[key] = [d[0], max(d[1:], default=0.0)]
+    return out
+
+
+ALL_GAPS = (("loss", 0), ("loss", 1), ("grad_norm", 0), ("grad_norm", 1))
+
+
+def train_gap_rule(mets, plain, wits, factor=1.5, hold=ALL_GAPS):
+    """The train runs' rule: for the loss and the gradient norm each, and
+    for step 1 and the later steps each (the pairs (key, 0 or 1) that
+    `hold` names), the kernel run `mets` no further from the `plain` run
+    than `factor` times the largest of the witness runs' `wits`
+    distances (floored at 2^-20 of the plain value, a few float32
+    ulps).  -> (kernel gaps, witness limits before the factor, the
+    failures as strings)."""
+    got = train_gaps(mets, plain)
+    gaps = [train_gaps(w, plain) for w in wits]
+    lim, bad = {}, []
+    for key, parts in got.items():
+        lim[key] = []
+        for i, d in enumerate(parts):
+            steps = plain[:1] if i == 0 else plain[1:]
+            floor = 2.0 ** -20 * max((abs(m[key]) for m in steps),
+                                     default=0.0)
+            w = max([g[key][i] for g in gaps] + [floor])
+            lim[key].append(w)
+            if (key, i) in hold and d > factor * w:
+                bad.append(f"{key} {'step 1' if i == 0 else 'later steps'}"
+                           f" {d} from plain, beyond {factor} x the "
+                           f"witnesses' {w}")
+    return got, lim, bad
+
+
+def train_phase(torch, src, emit_kernel) -> dict:
+    """The `train` phase: K4's and K7's backward against their plain
+    versions (`k4_bwd_checks`, `k7_bwd_checks`), then the training path
+    (`train.build_train_step` over `LM.loss` / `EncDecLM.loss`) at full
+    width: Qwen3-0.6B in float32 at TRAIN_F32_LAYERS layers against
+    `reference_train.json` (losses, gradient norms, learning rates to
+    TRAIN_F32_RTOL), Qwen3-0.6B in bfloat16 at all 28 layers on 8 x 512
+    packed batches through the kernels, the plain versions and the
+    witness, OLMoE-1B-7B at TRAIN_MOE_LAYERS layers with
+    `moe_ep_scatter` off and on, whisper-base (6 + 6 layers, 1,500
+    frames).  A kernel run must launch K4 forward (twice a layer a step:
+    the remat recomputes it), K4's backward and, with MoE, K7 and its
+    backward, and call no plain version; its losses and gradient norms
+    within `train_gap_rule` of the plain run's (the gaps each run
+    holds: below), Qwen3's step-1 gradient within `leaf_gap_rule`;
+    then whisper-base's and OLMoE's step 1 in float32
+    (`f32_step1_check`).  Returns
+    the kernel runs' launches."""
+    from repro_torch import configs
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.models import build_model, module
+    from repro_torch.train import TrainConfig, init_train_state
+    t_phase = time.perf_counter()
+    k4_bwd_checks(torch, emit_kernel)
+    k7_bwd_checks(torch, emit_kernel)
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # ---------------------------------------- float32 against the golden
+    with open(os.path.join(src, "repro_torch", "data",
+                           "reference_train.json")) as f:
+        gold = json.load(f)
+    require(gold["arch"] == TRAIN_ARCH and gold["seed"] == TRAIN_SEED
+            and gold["layers"] == TRAIN_F32_LAYERS
+            and (gold["batch"], gold["seq"], gold["steps"]) == (
+                TRAIN_F32_BATCH, TRAIN_F32_SEQ, TRAIN_F32_STEPS)
+            and gold["opt"] == TRAIN_OPT,
+            "reference_train.json names another run")
+    cfg32 = float32_config(torch, configs.get_config(TRAIN_ARCH)).replace(
+        n_layers=TRAIN_F32_LAYERS)
+    t0 = time.perf_counter()
+    params = module.init(build_model(cfg32, device="meta").param_specs(),
+                         TRAIN_SEED)
+    tc = TrainConfig()
+    state = init_train_state(train_state_from_numpy(params, "cuda"), {}, tc)
+    del params
+    draw_s = time.perf_counter() - t0
+    batches = train_batches(torch, cfg32, TRAIN_F32_BATCH, TRAIN_F32_SEQ,
+                            TRAIN_F32_STEPS, TRAIN_SEED)
+    mets, counts, ms, idle, peak = train_run(torch, cfg32, None, state,
+                                             batches, TRAIN_OPT)
+    rel = {}
+    for key in ("loss", "grad_norm", "lr"):
+        for t, (m, want, wit) in enumerate(zip(mets, gold[key],
+                                               gold["witness"][key])):
+            r = abs(m[key] - want) / abs(want)
+            rel[key] = max(rel.get(key, 0.0), r)
+            require(r <= TRAIN_F32_RTOL, f"train float32 step {t + 1} {key} "
+                    f"{m[key]} != golden {want} (rtol {r})")
+    want_counts = {"flash_attention": 2 * TRAIN_F32_LAYERS * TRAIN_F32_STEPS,
+                   "flash_attention_bwd": TRAIN_F32_LAYERS * TRAIN_F32_STEPS}
+    require(counts == want_counts, f"train float32 launches {counts} != "
+            f"{want_counts}")
+    add(counts)
+    emit({"phase": "train", "case": f"{TRAIN_ARCH} float32 against "
+          "reference_train.json", "layers": TRAIN_F32_LAYERS,
+          "batch": [TRAIN_F32_BATCH, TRAIN_F32_SEQ],
+          "loss": [m["loss"] for m in mets],
+          "grad_norm": [m["grad_norm"] for m in mets],
+          "golden_loss": gold["loss"], "golden_grad_norm": gold["grad_norm"],
+          "witness_loss": gold["witness"]["loss"],
+          "witness_grad_norm": gold["witness"]["grad_norm"],
+          "max_rel_err": rel, "rtol": TRAIN_F32_RTOL, "launches": counts,
+          "numpy_draw_s": draw_s, "ms_per_step": ms,
+          "peak_bytes": peak, "nvidia_smi": CARD["nvidia_smi"]})
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def bf16_runs(arch, cfg, witnesses, batch, seq, steps, want, extra="",
+                  hold=ALL_GAPS, leaves=False):
+        t0 = time.perf_counter()
+        specs, state, batches = train_start(torch, cfg, batch, seq, steps)
+        draw_s = time.perf_counter() - t0
+        with counted_plain(torch) as calls:
+            mets, counts, ms, idle, peak = train_run(
+                torch, cfg, None, state, batches, TRAIN_OPT)
+        require(sum(calls.values()) == 0, f"train {arch}{extra}: the kernel "
+                f"run called plain versions {calls}")
+        require(counts == want, f"train {arch}{extra} launches {counts} != "
+                f"{want}")
+        plain = train_run(torch, cfg, "ref", state, batches, TRAIN_OPT)
+        wits = [train_run(torch, cfg, "ref", state, batches, TRAIN_OPT,
+                          witness())[0] for witness in witnesses]
+        got, lim, bad = train_gap_rule(mets, plain[0], wits, hold=hold)
+        leaf = None
+        if leaves:      # step 1's gradient leaf by leaf, the same start
+            g_plain = step1_grads(torch, cfg, "ref", state, batches[0])[1]
+            g_wits = [step1_grads(torch, cfg, "ref", state, batches[0],
+                                  witness())[1] for witness in witnesses]
+            leaf, leaf_bad = leaf_gap_rule(
+                step1_grads(torch, cfg, None, state, batches[0])[1],
+                g_plain, g_wits)
+            del g_plain, g_wits
+            bad += leaf_bad
+        tokens = batch * seq
+        emit({"phase": "train", "case": f"{arch}{extra} bfloat16",
+              "layers": cfg.n_layers, "batch": [batch, seq],
+              "params": module.param_count(specs),
+              "loss": [m["loss"] for m in mets],
+              "grad_norm": [m["grad_norm"] for m in mets],
+              "plain_loss": [m["loss"] for m in plain[0]],
+              "plain_grad_norm": [m["grad_norm"] for m in plain[0]],
+              "witness_loss": [[m["loss"] for m in w] for w in wits],
+              "witness_grad_norm": [[m["grad_norm"] for m in w]
+                                    for w in wits],
+              "gap_from_plain": got, "witness_limit": lim,
+              "held": [f"{k} {'step 1' if i == 0 else 'later'}"
+                       for k, i in hold], "step1_leaves": leaf,
+              "launches": counts, "ms_per_step": ms,
+              "tokens_per_s": tokens / ms * 1e3,
+              "host_idle_share": idle, "peak_bytes": peak,
+              "plain_ms_per_step": plain[2], "plain_peak_bytes": plain[4],
+              "draw_s": draw_s, "nvidia_smi": CARD["nvidia_smi"]})
+        require(not bad, f"train {arch}{extra} bfloat16: "
+                + "; ".join(bad))
+        add(counts)
+        del state, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # --------------------------------------- Qwen3-0.6B bfloat16, 28 layers
+    # What each bfloat16 run holds (every gap is recorded): the loss of
+    # step 1, a forward from the shared start, always.  Step 1's
+    # gradient norm is one projection of a gradient that any reordering
+    # moves by ~4 % (Qwen3's `embed`), too noisy for a 1.5x rule; Qwen3
+    # holds that gradient leaf by leaf instead, and its later steps.
+    # With MoE a rounding flips a few tokens' experts (the router's
+    # top-k; the scatter lowering's atomic adds differ from run to run)
+    # and whisper's saturated softmax decorrelates its gradient, so
+    # their later steps measure noise and their step-1 gradients are
+    # held in float32 below.
+    later = (("loss", 0), ("loss", 1), ("grad_norm", 1))
+    witnesses = train_witnesses(torch)
+    cfg = configs.get_config(TRAIN_ARCH)
+    L, n = cfg.n_layers, TRAIN_BF16_STEPS
+    bf16_runs(TRAIN_ARCH, cfg, witnesses, TRAIN_BF16_BATCH,
+              TRAIN_BF16_SEQ, n, {"flash_attention": 2 * L * n,
+                                  "flash_attention_bwd": L * n},
+              hold=later, leaves=True)
+    # ---------------------------------- OLMoE-1B-7B, both dispatch lowerings
+    for ep in (False, True):
+        cfg = configs.get_config(TRAIN_MOE_ARCH).replace(
+            n_layers=TRAIN_MOE_LAYERS, moe_ep_scatter=ep)
+        L, n = cfg.n_layers, TRAIN_MOE_STEPS
+        bf16_runs(TRAIN_MOE_ARCH, cfg, train_witnesses(torch, moe=True),
+                  TRAIN_BF16_BATCH,
+                  TRAIN_BF16_SEQ, n, {"flash_attention": 2 * L * n,
+                                      "flash_attention_bwd": L * n,
+                                      "moe_gmm": 6 * L * n,
+                                      "moe_gmm_bwd": 6 * L * n},
+                  f" ({L} layers, moe_ep_scatter={ep})",
+                  hold=(("loss", 0),))
+    # ------------------------------------------------------- whisper-base
+    cfg = configs.get_config(TRAIN_ENCDEC_ARCH)
+    n = TRAIN_ENCDEC_STEPS
+    # a decoder layer runs K4 twice (self, cross), an encoder layer once
+    n_fwd = cfg.n_layers * 2 + (cfg.n_enc_layers or cfg.n_layers)
+    whisper = cfg
+    bf16_runs(TRAIN_ENCDEC_ARCH, cfg, witnesses, TRAIN_BF16_BATCH,
+              TRAIN_ENCDEC_SEQ, n, {"flash_attention": 2 * n_fwd * n,
+                                    "flash_attention_bwd": n_fwd * n},
+              hold=(("loss", 0),))
+    # ---------------------------- float32 step 1, loss, norm and leaves
+    # whisper-base's scores reach the hundreds (the stacked weights'
+    # fan-in is the layer count, and it has no qk-norm)
+    f32_step1_check(torch, TRAIN_ENCDEC_ARCH, whisper, TRAIN_BF16_BATCH,
+                    TRAIN_ENCDEC_SEQ, witnesses)
+    f32_step1_check(torch, f"{TRAIN_MOE_ARCH} ({TRAIN_MOE_LAYERS} layers)",
+                    configs.get_config(TRAIN_MOE_ARCH).replace(
+                        n_layers=TRAIN_MOE_LAYERS), TRAIN_BF16_BATCH,
+                    TRAIN_BF16_SEQ, train_witnesses(torch, moe=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "case": "done", "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 def port_prefix(key: str):

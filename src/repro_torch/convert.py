@@ -1,6 +1,6 @@
 """Carry a network, an iterate, a churn schedule and task pool, a fault
 and a guard carry, a request router's and a distributed run's state, LM
-weights and LM state across from numpy arrays.
+weights, LM state and a train state across from numpy arrays.
 
 The port never sees another framework's types: a caller hands over the
 fields as numpy arrays (`np.asarray(...)` of whatever holds them) and
@@ -176,12 +176,14 @@ def lm_params_from_numpy(cfg, tree: dict, device=None) -> dict:
     return _state_dict(cfg, tree, lambda a: _f32(a, dev))
 
 
-def lm_params_from_tensors(cfg, tree: dict) -> dict:
+def lm_params_from_tensors(cfg, tree: dict, check: bool = True) -> dict:
     """`lm_params_from_numpy` for a tree of tensors (`models.module.draw`
     draws one on the card): the same layout changes, each tensor kept in
     its dtype and on its device (layers are views of the stacked
-    leaves)."""
-    return _state_dict(cfg, tree, lambda a: a)
+    leaves, so gradients flow back to them).  `check=False` skips
+    matching the names against the model (the train step's inner
+    loop)."""
+    return _state_dict(cfg, tree, lambda a: a, check)
 
 
 def _attn_shapes(cfg) -> dict:
@@ -190,10 +192,12 @@ def _attn_shapes(cfg) -> dict:
             "wo": (H * hd, d)}
 
 
-def _state_dict(cfg, tree: dict, leaf) -> dict:
+def _state_dict(cfg, tree: dict, leaf, check: bool = True) -> dict:
     from .models import build_model
     out = (_encdec_state_dict(cfg, tree, leaf) if cfg.family == "encdec"
            else _lm_state_dict(cfg, tree, leaf))
+    if not check:
+        return out
     expected = set(build_model(cfg, device="meta").state_dict())
     if set(out) != expected:
         raise ValueError(f"{cfg.name}: the tree does not match the model: "
@@ -270,6 +274,29 @@ def lm_state_from_numpy(cfg, tree: dict, device=None) -> dict:
         raise ValueError(f"{cfg.name}: the state tree {got} does not match "
                          f"the model's {want}")
     return module.tree_map(lambda a: _f32(a, dev), tree)
+
+
+def train_state_from_numpy(tree: dict, device=None) -> dict:
+    """A train state (`train.init_train_state`'s tree, the JAX package's
+    layout: "params", "opt" {"mu", "nu", "count"}, "model_state" and
+    optionally "err") on `device` (None: the card) from the same tree as
+    numpy arrays: floating leaves float32, the step count int32."""
+    from .models import module
+    dev = resolve_device(device)
+
+    def one(a):
+        a = np.asarray(a)
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.as_tensor(a.astype(np.int32), device=dev)
+        return _f32(a, dev)
+    return module.tree_map(one, tree)
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """A train state as numpy arrays, the same tree (float32 leaves, the
+    int32 step count): what the JAX package's train step takes."""
+    from .models import module
+    return module.tree_map(lambda t: t.detach().cpu().numpy(), state)
 
 
 # ------------------------------------------------------------- churn

@@ -19,7 +19,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("edge_rounds", "simplex_project", "flash_attention",
-           "decode_attention", "ssd_scan", "moe_gmm")
+           "flash_attention_bwd", "decode_attention", "ssd_scan", "moe_gmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -89,9 +89,16 @@ _SIGNATURES = {
                                    _INT, _INT, _INT, _PTR],
     },
     "flash_attention": {
-        "flash_attention_launch": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
-                                   _INT, _INT, _INT, _INT] + [_LONG] * 12
-                                  + [_FLOAT, _INT, _PTR],
+        "flash_attention_fwd_launch": [_INT, _PTR, _PTR, _PTR, _PTR, _INT,
+                                       _INT, _INT, _INT, _INT, _INT]
+                                      + [_LONG] * 12
+                                      + [_FLOAT, _INT, _PTR, _PTR, _PTR,
+                                         _PTR],
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch": [_INT] + [_PTR] * 11
+                                      + [_INT] * 6
+                                      + [_LONG] * 24 + [_FLOAT, _INT, _PTR],
     },
     "decode_attention": {
         "decode_attention_launch": [_INT, _INT, _INT] + [_PTR] * 7

@@ -40,14 +40,36 @@
 //   enters the bf16 product as two bfloat16 parts, P ≈ hi + lo with hi =
 //   bf16(P) and lo = bf16(P - hi), two wgmma into the same float32
 //   accumulator, which carries it to a relative 2^-17 instead of bf16's
-//   2^-9.  A CTA takes 112 KB of shared memory and 128 threads of at
-//   most 255 registers at hd 128, so two fit an SM (228 KB, 64 K
-//   registers) where the grid is larger than the card.
+//   2^-9; the training forward (STATS) takes a third part, to float32's
+//   2^-25: at two parts 0.2 % of its bf16 outputs part from the plain
+//   version's, ten times what float32 sums in another order move, and a
+//   router's top-k turns such ulps into flipped routes.  A CTA takes
+//   112 KB of shared memory and 128 threads of at most 255 registers at
+//   hd 128, so two fit an SM (228 KB, 64 K registers) where the grid is
+//   larger than the card.
 // * float32, or any other head dim (<= 128): CUDA cores.  One CTA of
 //   256 threads per (query tile of 64, head, batch row) with Q, K, V and
 //   the score tile staged in shared memory as float32; thread (ty, tx)
 //   of a 16 x 16 grid owns score rows ty + 16i, columns tx + 16j, and
 //   output dims tx + 16j.  It loads each tile synchronously.
+//
+// Training adds two operands, both null on the serving path (whose
+// kernels are the SEG = false instantiations, unchanged): `seg` [B, Sq]
+// int32, the packed batch's segment ids (Sk = Sq), which masks every
+// key of another segment than its query's, and `lse` [B, H, Sq] float32,
+// written when given: each row's log-sum-exp of its scaled scores in
+// natural-log units (the CUDA-core kernel's m + ln l; the tensor-core
+// kernel's (m + log2 l)·ln 2, its scores being in log2 units), which the
+// backward kernel (flash_attention_bwd.cu) reads to rebuild P; and
+// `o32`, null or [B, H, Sq, hd] float32 contiguous: the output before
+// its cast to bfloat16, from which the backward takes D = rowsum(dO ∘ O)
+// as the float32 plain version does (a bf16-rounded O would move D by
+// its rounding).  Under
+// segments a masked score is -inf rather than NEG_INF: a tile whose keys
+// are all masked for a row then leaves its m (finite, from -1e30 up), l
+// and accumulator as they were (exp(-inf - m) = 0, alpha = 1), with no
+// -inf - -inf.  Every row keeps a key (causal packing: its own), so its
+// log-sum-exp is finite.
 //
 // Both walk the keys in tiles of 64 up to the diagonal when causal
 // (tiles wholly above it contribute nothing), keep a running max and
@@ -60,6 +82,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -105,15 +128,17 @@ struct Strides {   // element strides of the batch, head and sequence axes
 size_t smem_bytes(int hd) {
     return sizeof(float) * ((size_t)kBQ * hd + (size_t)kBK * (hd + 1)
                             + (size_t)kBK * hd + (size_t)kBQ * (kBK + 1)
-                            + 3 * kBQ);
+                            + 5 * kBQ);
 }
 
-template <typename T>
+template <typename T, bool SEG, bool STATS>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, Strides qs,
                  Strides ks, Strides vs, Strides os, int H, int KV, int Sq,
-                 int Sk, int hd, float scale, int causal) {
+                 int Sk, int hd, float scale, int causal,
+                 const int* __restrict__ seg, float* __restrict__ lse,
+                 float* __restrict__ o32) {
     extern __shared__ float smem[];
     const int ldk = hd + 1;          // padded K rows: conflict-free reads
     const int ldp = kBK + 1;
@@ -124,6 +149,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float* m_s = Ps + kBQ * ldp;             // running max per row
     float* l_s = m_s + kBQ;                  // running sum per row
     float* a_s = l_s + kBQ;                  // this tile's rescale
+    int* segq_s = reinterpret_cast<int*>(a_s + kBQ);   // SEG: rows' ids
+    int* segk_s = segq_s + kBQ;                        // SEG: keys' ids
+    constexpr float kMasked = SEG ? -INFINITY : kNegInf;
 
     const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
     const int warp = tid >> 5, lane = tid & 31;
@@ -141,6 +169,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (tid < kBQ) {
         m_s[tid] = kNegInf;
         l_s[tid] = 0.0f;
+        if (SEG) segq_s[tid] = q0 + tid < Sq ? seg[b * Sq + q0 + tid] : -1;
     }
     float acc[4][kNJ];
 #pragma unroll
@@ -157,6 +186,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             Ks[c * ldk + d] = ok ? to_f(kb[s * ks.s + d]) : 0.0f;
             Vs[idx] = ok ? to_f(vb[s * vs.s + d]) : 0.0f;
         }
+        if (SEG && tid < kBK)
+            segk_s[tid] = k0 + tid < Sk ? seg[b * Sq + k0 + tid] : -2;
         __syncthreads();
 
         // scores of rows ty + 16i against keys tx + 16j of this tile
@@ -183,8 +214,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
                 const int c = tx + 16 * j, key = k0 + c;
-                const bool ok = key < Sk && (!causal || key <= q0 + r);
-                Ps[r * ldp + c] = ok ? sc[i][j] * scale : kNegInf;
+                const bool ok = key < Sk && (!causal || key <= q0 + r)
+                    && (!SEG || segq_s[r] == segk_s[c]);
+                Ps[r * ldp + c] = ok ? sc[i][j] * scale : kMasked;
             }
         }
         __syncthreads();
@@ -237,29 +269,37 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
         const int r = ty + 16 * i, s = q0 + r;
         if (s >= Sq) continue;
+        if (STATS && tx == 0)
+            lse[((long)b * H + h) * Sq + s] = m_s[r] + logf(l_s[r]);
         const float denom = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
         for (int j = 0; j < kNJ; ++j) {
             const int d = tx + 16 * j;
-            if (d < hd) ob[s * os.s + d] = from_f<T>(acc[i][j] / denom);
+            if (d < hd) {
+                ob[s * os.s + d] = from_f<T>(acc[i][j] / denom);
+                if (STATS && o32 != nullptr)   // bf16: o32 set, f32: null
+                    o32[(((long)b * H + h) * Sq + s) * hd + d] =
+                        acc[i][j] / denom;
+            }
         }
     }
 }
 
-template <typename T>
+template <typename T, bool SEG, bool STATS>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int KV, int Sq, int Sk, int hd, Strides qs,
                    Strides ks, Strides vs, Strides os, float scale,
-                   int causal, cudaStream_t stream) {
+                   int causal, const int* seg, float* lse, float* o32,
+                   cudaStream_t stream) {
     const size_t smem = smem_bytes(hd);
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_fwd_kernel<T, SEG, STATS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-    flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+    flash_fwd_kernel<T, SEG, STATS><<<grid, kThreads, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)o, qs, ks, vs, os, H, KV,
-        Sq, Sk, hd, scale, causal);
+        Sq, Sk, hd, scale, causal, seg, lse, o32);
     return cudaGetLastError();
 }
 
@@ -282,6 +322,15 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
     __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
     hi = *reinterpret_cast<uint32_t*>(&h);
     lo = *reinterpret_cast<uint32_t*>(&l);
+}
+// (a, b) ≈ hi + mid + lo as three packed bfloat16 pairs, each rounding
+// what the earlier parts leave: P to a relative 2^-25, float32's
+__device__ __forceinline__ void split_bf16_3(float a, float b, uint32_t& hi,
+                                             uint32_t& mid, uint32_t& lo) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 hf = __bfloat1622float2(h);
+    split_bf16(a - hf.x, b - hf.y, mid, lo);
+    hi = *reinterpret_cast<uint32_t*>(&h);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -446,14 +495,16 @@ size_t wgmma_smem_bytes(int hd) {   // Q and kStages K/V tiles, + alignment
     return (size_t)(1 + 2 * kStages) * 64 * hd * 2 + 1024;
 }
 
-template <int HD>
+template <int HD, bool SEG, bool STATS>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
                        __nv_bfloat16* __restrict__ o, Strides qs, Strides ks,
                        Strides vs, Strides os, int H, int KV, int Sq,
-                       int Sk, float scale, int causal) {
+                       int Sk, float scale, int causal,
+                       const int* __restrict__ seg, float* __restrict__ lse,
+                       float* __restrict__ o32) {
     constexpr uint32_t kTile = 64 * HD * 2;   // bytes of one 64-row tile
     constexpr int kKSteps = HD / 16, kDTiles = HD / 8;
     extern __shared__ unsigned char smem_raw[];
@@ -493,6 +544,10 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     // this thread's rows: qr0 (fragment entries 0, 1) and qr0 + 8 (2, 3)
     const int qr0 = q0 + warp * 16 + g, qr1 = qr0 + 8;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
+    // SEG: the rows' segment ids (-1 past Sq: no key matches)
+    const int* segb = SEG ? seg + (long)b * Sq : nullptr;
+    const int sq0 = SEG && qr0 < Sq ? segb[qr0] : -1;
+    const int sq1 = SEG && qr1 < Sq ? segb[qr1] : -1;
 
     const float scale2 = scale * 1.4426950408889634f;
     for (int kt = 0; kt < n_kt; ++kt) {
@@ -529,7 +584,8 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
         // sc[4j + e]: row qr0 (e < 2) or qr1, key k0 + 8j + 2t + (e & 1)
         float mx0 = kNegInf, mx1 = kNegInf;
-        const bool masked = (causal && kt == qt) || k0 + 64 > Sk;
+        const bool masked = SEG || (causal && kt == qt) || k0 + 64 > Sk;
+        constexpr float kMasked = SEG ? -INFINITY : kNegInf;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -540,8 +596,13 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                 s1 *= scale2;
                 if (masked) {
                     const int key = k0 + j * 8 + 2 * t + e;
-                    if (key >= Sk || (causal && key > qr0)) s0 = kNegInf;
-                    if (key >= Sk || (causal && key > qr1)) s1 = kNegInf;
+                    const int sk = SEG && key < Sk ? __ldg(segb + key) : -2;
+                    if (key >= Sk || (causal && key > qr0)
+                            || (SEG && sk != sq0))
+                        s0 = kMasked;
+                    if (key >= Sk || (causal && key > qr1)
+                            || (SEG && sk != sq1))
+                        s1 = kMasked;
                 }
                 mx0 = fmaxf(mx0, s0);
                 mx1 = fmaxf(mx1, s1);
@@ -579,27 +640,34 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
             acc[4 * n + 3] *= al1;
         }
         // O += P V: S's accumulator entries 8kk..8kk+7 are the A fragment
-        // of key step kk; P's high and low bfloat16 parts one wgmma each,
-        // V an MN-major B operand (16 keys = 2048 bytes a step)
-        uint32_t ph[4][4], pl[4][4];
+        // of key step kk; P's bfloat16 parts one wgmma each, smallest
+        // first (two serving, three training: STATS), V an MN-major B
+        // operand (16 keys = 2048 bytes a step)
+        constexpr int kParts = STATS ? 3 : 2;
+        uint32_t pp[kParts][4][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
             const float* p = sc + 8 * kk;
-            split_bf16(p[0], p[1], ph[kk][0], pl[kk][0]);
-            split_bf16(p[2], p[3], ph[kk][1], pl[kk][1]);
-            split_bf16(p[4], p[5], ph[kk][2], pl[kk][2]);
-            split_bf16(p[6], p[7], ph[kk][3], pl[kk][3]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                if constexpr (STATS)
+                    split_bf16_3(p[2 * i], p[2 * i + 1], pp[0][kk][i],
+                                 pp[1][kk][i], pp[2][kk][i]);
+                else
+                    split_bf16(p[2 * i], p[2 * i + 1], pp[0][kk][i],
+                               pp[1][kk][i]);
+            }
         }
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
             const uint64_t dv = sw128_desc(sV + kk * 2048, kBlockBytes, 1024);
-            if constexpr (HD == 128) {
-                wgmma_rs_n128(acc, pl[kk], dv);
-                wgmma_rs_n128(acc, ph[kk], dv);
-            } else {
-                wgmma_rs_n64(acc, pl[kk], dv);
-                wgmma_rs_n64(acc, ph[kk], dv);
+#pragma unroll
+            for (int part = kParts - 1; part >= 0; --part) {
+                if constexpr (HD == 128)
+                    wgmma_rs_n128(acc, pp[part][kk], dv);
+                else
+                    wgmma_rs_n64(acc, pp[part][kk], dv);
             }
         }
         wgmma_commit();
@@ -613,6 +681,12 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
         l1 += __shfl_xor_sync(kFull, l1, off);
     }
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    if (STATS && t == 0) {
+        constexpr float kLn2 = 0.6931471805599453f;
+        float* lb = lse + ((long)b * H + h) * Sq;
+        if (qr0 < Sq) lb[qr0] = (m0 + log2f(l0)) * kLn2;
+        if (qr1 < Sq) lb[qr1] = (m1 + log2f(l1)) * kLn2;
+    }
 #pragma unroll
     for (int n = 0; n < kDTiles; ++n) {
         const int d = n * 8 + 2 * t;
@@ -622,25 +696,69 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
         if (qr1 < Sq)
             *reinterpret_cast<uint32_t*>(ob + qr1 * os.s + d) =
                 pack_bf16(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
+        if (STATS) {
+            float* ob32 = o32 + ((long)b * H + h) * Sq * HD + d;
+            if (qr0 < Sq)
+                *reinterpret_cast<float2*>(ob32 + (long)qr0 * HD) =
+                    make_float2(acc[4 * n] / d0, acc[4 * n + 1] / d0);
+            if (qr1 < Sq)
+                *reinterpret_cast<float2*>(ob32 + (long)qr1 * HD) =
+                    make_float2(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
+        }
     }
 }
 
-template <int HD>
+template <int HD, bool SEG, bool STATS>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, int B, int H, int KV, int Sq, int Sk,
                          Strides qs, Strides ks, Strides vs, Strides os,
-                         float scale, int causal, cudaStream_t stream) {
+                         float scale, int causal, const int* seg, float* lse,
+                         float* o32, cudaStream_t stream) {
     const size_t smem = wgmma_smem_bytes(HD);
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_wgmma_kernel<HD>,
+        flash_fwd_wgmma_kernel<HD, SEG, STATS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(H, B, (Sq + 63) / 64);
-    flash_fwd_wgmma_kernel<HD><<<grid, kWgThreads, smem, stream>>>(
+    flash_fwd_wgmma_kernel<HD, SEG, STATS>
+        <<<grid, kWgThreads, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
         (const __nv_bfloat16*)v, (__nv_bfloat16*)o, qs, ks, vs, os, H, KV,
-        Sq, Sk, scale, causal);
+        Sq, Sk, scale, causal, seg, lse, o32);
     return cudaGetLastError();
+}
+
+// the instantiation a launch takes: SEG with segment ids, STATS with the
+// log-sum-exp (and, for bfloat16, the float32 output) written; the
+// serving launch, neither, is the kernel without either
+template <int HD>
+cudaError_t launch_wgmma_seg(const void* q, const void* k, const void* v,
+                             void* o, int B, int H, int KV, int Sq, int Sk,
+                             Strides qs, Strides ks, Strides vs, Strides os,
+                             float scale, int causal, const int* seg,
+                             float* lse, float* o32, cudaStream_t stream) {
+#define FA_WGMMA(SEG, STATS)                                                 \
+    launch_wgmma<HD, SEG, STATS>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks, vs,  \
+                                 os, scale, causal, seg, lse, o32, stream)
+    if (lse != nullptr)
+        return seg != nullptr ? FA_WGMMA(true, true) : FA_WGMMA(false, true);
+    return seg != nullptr ? FA_WGMMA(true, false) : FA_WGMMA(false, false);
+#undef FA_WGMMA
+}
+
+template <typename T>
+cudaError_t launch_seg(const void* q, const void* k, const void* v, void* o,
+                       int B, int H, int KV, int Sq, int Sk, int hd,
+                       Strides qs, Strides ks, Strides vs, Strides os,
+                       float scale, int causal, const int* seg, float* lse,
+                       float* o32, cudaStream_t stream) {
+#define FA_CORES(SEG, STATS)                                                 \
+    launch<T, SEG, STATS>(q, k, v, o, B, H, KV, Sq, Sk, hd, qs, ks, vs, os, \
+                          scale, causal, seg, lse, o32, stream)
+    if (lse != nullptr)
+        return seg != nullptr ? FA_CORES(true, true) : FA_CORES(false, true);
+    return seg != nullptr ? FA_CORES(true, false) : FA_CORES(false, false);
+#undef FA_CORES
 }
 
 bool rows_aligned(const void* p, Strides st) {
@@ -655,41 +773,49 @@ extern "C" {
 // q [B, H, Sq, hd], k and v [B, KV, Sk, hd], o [B, H, Sq, hd], each
 // given by its element strides of (batch, head, sequence) with the head
 // dim contiguous.  bf16 != 0: all four are bfloat16, else float32.  hd <=
-// 128, H a multiple of KV, Sk >= 1, and Sk = Sq when causal.  bfloat16
-// with hd 64 or 128, 16-byte aligned pointers and strides that are
-// multiples of 8 go to the tensor-core kernel, everything else to the
-// CUDA-core one.  Returns
-// cudaGetLastError() of the launch.
-int flash_attention_launch(int bf16, const void* q, const void* k,
-                           const void* v, void* o, int B, int H, int KV,
-                           int Sq, int Sk, int hd, long qsb, long qsh,
-                           long qss,
-                           long ksb, long ksh, long kss, long vsb, long vsh,
-                           long vss, long osb, long osh, long oss,
-                           float scale, int causal, void* stream) {
+// 128, H a multiple of KV, Sk >= 1, and Sk = Sq when causal or when
+// `seg` is given.  seg: null, or [B, Sq] int32 contiguous segment ids;
+// lse: null, or [B, H, Sq] float32 contiguous, written; o32: null, or
+// [B, H, Sq, hd] float32 contiguous, the output before its cast, written
+// (bfloat16 only, given exactly when lse is: a float32 o is that
+// already).  bfloat16 with
+// hd 64 or 128, 16-byte aligned pointers and strides that are multiples
+// of 8 go to the tensor-core kernel, everything else to the CUDA-core
+// one.  Returns cudaGetLastError() of the launch.
+int flash_attention_fwd_launch(int bf16, const void* q, const void* k,
+                               const void* v, void* o, int B, int H, int KV,
+                               int Sq, int Sk, int hd, long qsb, long qsh,
+                               long qss, long ksb, long ksh, long kss,
+                               long vsb, long vsh, long vss, long osb,
+                               long osh, long oss, float scale, int causal,
+                               const int* seg, float* lse, float* o32,
+                               void* stream) {
     if (B == 0 || H == 0 || Sq == 0) return 0;
     if (hd > kMaxHd || KV == 0 || H % KV != 0 || Sk < 1
-            || (causal && Sk != Sq))
+            || ((causal || seg != nullptr) && Sk != Sq)
+            || (bf16 && (lse == nullptr) != (o32 == nullptr)))
         return (int)cudaErrorInvalidValue;
     const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
         os{osb, osh, oss};
+    const cudaStream_t st = (cudaStream_t)stream;
     if (bf16 && (hd == 64 || hd == 128) && rows_aligned(q, qs)
             && rows_aligned(k, ks) && rows_aligned(v, vs)
             && rows_aligned(o, os)) {
         if (hd == 64)
-            return (int)launch_wgmma<64>(q, k, v, o, B, H, KV, Sq, Sk, qs,
-                                         ks, vs, os, scale, causal,
-                                         (cudaStream_t)stream);
-        return (int)launch_wgmma<128>(q, k, v, o, B, H, KV, Sq, Sk, qs, ks,
-                                      vs, os, scale, causal,
-                                      (cudaStream_t)stream);
+            return (int)launch_wgmma_seg<64>(q, k, v, o, B, H, KV, Sq, Sk,
+                                             qs, ks, vs, os, scale, causal,
+                                             seg, lse, o32, st);
+        return (int)launch_wgmma_seg<128>(q, k, v, o, B, H, KV, Sq, Sk, qs,
+                                          ks, vs, os, scale, causal, seg,
+                                          lse, o32, st);
     }
     if (bf16)
-        return (int)launch<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk, hd,
-                                          qs, ks, vs, os, scale, causal,
-                                          (cudaStream_t)stream);
-    return (int)launch<float>(q, k, v, o, B, H, KV, Sq, Sk, hd, qs, ks, vs,
-                              os, scale, causal, (cudaStream_t)stream);
+        return (int)launch_seg<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk,
+                                              hd, qs, ks, vs, os, scale,
+                                              causal, seg, lse, o32, st);
+    return (int)launch_seg<float>(q, k, v, o, B, H, KV, Sq, Sk, hd, qs, ks,
+                                  vs, os, scale, causal, seg, lse, nullptr,
+                                  st);
 }
 
 }  // extern "C"

@@ -6,10 +6,14 @@ carry the attention LM's prefill and decode (and the encoder-decoder's
 encoder, decoder and cross attention); K6 `ssd_scan` carries the
 Mamba2 mixer's prefill (its decode step is plain PyTorch: the JAX package
 has no kernel for it); K7 `moe_gmm` carries the three expert products of
-the MoE FFN, in prefill and decode alike.
+the MoE FFN, in prefill and decode alike.  Under autograd (training)
+K4 and K7 run as `FlashAttentionFn` and `MoeGmmFn`: their forward
+kernels, then K4's backward kernel (`flash_attention_bwd`) and two more
+K7 launches (`moe_gmm_bwd`) in the backward pass.
 
 A CUDA tensor goes to the kernel; a CPU tensor goes to the plain
-PyTorch version.  `impl="ref"` forces the plain version on any device
+PyTorch version (differentiable: on the CPU autograd takes its
+gradient).  `impl="ref"` forces the plain version on any device
 (the tests and `chip_smoke.py`'s comparisons use it).  There is no
 fallback: a kernel that fails to build or launch raises.
 """
@@ -22,8 +26,9 @@ import torch
 from . import ref as _ref
 from .decode_attention import decode_attention_cuda
 from .edge_rounds import edge_rounds_bucketed_cuda, edge_rounds_cuda
-from .flash_attention import flash_attention_cuda
-from .moe_gmm import moe_gmm_cuda
+from .flash_attention import (FlashAttentionFn, flash_attention_bwd_cuda,
+                              flash_attention_cuda)
+from .moe_gmm import MoeGmmFn, moe_gmm_bwd_cuda, moe_gmm_cuda
 from .simplex_project import simplex_project_cuda
 from .ssd_scan import ssd_scan_cuda
 
@@ -32,8 +37,10 @@ _BY_NAME = {"edge_rounds": edge_rounds_cuda,
             "edge_rounds_bucketed": edge_rounds_bucketed_cuda,
             "simplex_project": simplex_project_cuda,
             "flash_attention": flash_attention_cuda,
+            "flash_attention_bwd": flash_attention_bwd_cuda,
             "decode_attention": decode_attention_cuda,
-            "ssd_scan": ssd_scan_cuda, "moe_gmm": moe_gmm_cuda}
+            "ssd_scan": ssd_scan_cuda, "moe_gmm": moe_gmm_cuda,
+            "moe_gmm_bwd": moe_gmm_bwd_cuda}
 KERNELS = tuple(_BY_NAME.values())
 
 
@@ -141,16 +148,27 @@ def simplex_project(phi, delta, M, permitted, impl: Optional[str] = None):
     return simplex_project_cuda(phi, delta, M, permitted)
 
 
+def _grad_needed(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def flash_attention(q, k, v, causal: bool = True,
-                    impl: Optional[str] = None):
+                    impl: Optional[str] = None, segment_ids=None):
     """GQA attention over a whole sequence: q [B, H, Sq, hd], k, v
     [B, KV, Sk, hd] -> [B, H, Sq, hd], any lengths (the prefill of `LM`
-    and of `EncDecLM`'s encoder and decoder).  Sk may differ from Sq
-    only when not causal (the decoder's cross attention over the encoder
-    frames); causal with Sk != Sq raises."""
+    and of `EncDecLM`'s encoder and decoder, and their training loss).
+    Sk may differ from Sq only when not causal (the decoder's cross
+    attention over the encoder frames); causal with Sk != Sq raises.
+    `segment_ids` [B, Sq] masks keys of another segment (packed
+    training batches).  On the card, when autograd needs its gradient,
+    K4 runs as `FlashAttentionFn` (forward and backward kernels)."""
     if _pick(impl, q) == "ref":
-        return _ref.flash_attention_ref(q, k, v, causal=causal)
-    return flash_attention_cuda(q, k, v, causal=causal)
+        return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                        segment_ids=segment_ids)
+    if _grad_needed(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, segment_ids)
+    return flash_attention_cuda(q, k, v, causal=causal,
+                                segment_ids=segment_ids)
 
 
 def decode_attention(q, k_cache, v_cache, lengths,
@@ -183,7 +201,10 @@ def moe_gmm(x, w, impl: Optional[str] = None, active=None):
     """Grouped expert matmul: x [E, C, D] @ w [E, D, F] -> [E, C, F] in
     x's dtype, float32 sums over D; any E, C, D and F.  `active` ([E]
     bool or int32, on x's device) marks the experts that hold a row: the
-    others' outputs are zero and their weights are not read."""
+    others' outputs are zero and their weights are not read.  On the
+    card, when autograd needs its gradient, K7 runs as `MoeGmmFn`."""
     if _pick(impl, x) == "ref":
         return _ref.moe_gmm_ref(x, w, active)
+    if _grad_needed(x, w):
+        return MoeGmmFn.apply(x, w, active)
     return moe_gmm_cuda(x, w, active)

@@ -16,8 +16,9 @@ package's `kernels/ref.py` and `core/sgp.py:project_rows`:
   simplex dual in hoisted slope-intercept form with the bracket
   fixed-point early exit.
 * `flash_attention_ref` / `decode_attention_ref` are the two attention
-  kernels' function: scores in float32, softmax probabilities kept in
-  float32 and normalised at the end, one cast of the output to the
+  kernels' function (the first also segment-masked, for packed training
+  batches, and differentiable): scores in float32, softmax
+  probabilities kept in float32 and normalised at the end, one cast of the output to the
   input dtype, as in the Pallas kernels (the JAX package's references
   round the probabilities to the input dtype before the product with v;
   at float32 the two agree to rounding).
@@ -188,23 +189,40 @@ def _softmax_pv(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (p @ v) / torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
 
 
-def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
+def flash_attention_ref(q, k, v, causal: bool = True,
+                        segment_ids=None) -> torch.Tensor:
     """q [B, H, Sq, hd]; k, v [B, KV, Sk, hd] -> [B, H, Sq, hd] in q's
     dtype (KV head of query head h: h // (H / KV)).  Not causal, Sk is
     any length (cross attention: the softmax over all Sk keys); causal
-    needs Sk = Sq."""
+    needs Sk = Sq.  `segment_ids` [B, S] (packed sequences, Sk = Sq)
+    masks every key of another segment than its query's.  Differentiable:
+    its gradient under autograd is the plain version of K4's backward."""
     B, H, S, hd = q.shape
-    if causal and k.shape[2] != S:
-        raise ValueError(f"causal attention needs as many keys as "
-                         f"queries, got {k.shape[2]} for {S}")
+    if (causal or segment_ids is not None) and k.shape[2] != S:
+        raise ValueError(f"causal or segment-masked attention needs as "
+                         f"many keys as queries, got {k.shape[2]} for {S}")
     g = H // k.shape[1]
     kf = k.float().repeat_interleave(g, dim=1)
     vf = v.float().repeat_interleave(g, dim=1)
     s = (q.float() @ kf.transpose(-1, -2)) * hd ** -0.5
-    if causal:
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    mask = attention_mask(S, causal, segment_ids, q.device)
+    if mask is not None:
         s = torch.where(mask, s, NEG_INF)
     return _softmax_pv(s, vf).to(q.dtype)
+
+
+def attention_mask(S: int, causal: bool, segment_ids, device):
+    """The keep mask of `flash_attention_ref`'s scores, broadcastable to
+    [B, H, S, S], or None: key <= query when causal, and equal segments
+    (segment_ids [B, S]) when given."""
+    mask = None
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=device).tril()
+    if segment_ids is not None:
+        seg = segment_ids.to(device)
+        same = (seg[:, :, None] == seg[:, None, :])[:, None]
+        mask = same if mask is None else mask & same
+    return mask
 
 
 def decode_attention_ref(q, k_cache, v_cache, lengths) -> torch.Tensor:

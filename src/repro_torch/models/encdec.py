@@ -9,6 +9,7 @@ of the JAX package's `models/encdec.py`).
                                                 -> (logits, state, cache)
     EncDecLM(cfg).decode_step(state, cache, tokens, pos)
                                                 -> (logits, state, cache)
+    EncDecLM(cfg).loss(state, batch, params=None)  -> (loss, {}, metrics)
 
 The audio frontend is a stub, as in the JAX package: `enc_feats` are
 precomputed frame embeddings [B, F, d_model].  Positions are RoPE, in
@@ -31,7 +32,17 @@ the JAX layout, decoder layers first: `self_k` / `self_v` [n_dec, B,
 max_len, KV, hd] and `cross_k` / `cross_v` [n_dec, B, F, KV, hd];
 prefill writes the self caches' first L positions and the whole cross
 caches of the lanes it is given, decode the self caches at pos.
-There is no model state ({}).  The training loss is not ported.
+There is no model state ({}).
+
+`loss` is the JAX package's `EncDecLM.loss`: the batch's "enc_feats"
+through the encoder (K4 non-causal), then the decoder on "tokens"
+(causal self attention, masked to the query's segment when the batch
+has "segment_ids"; the cross attention K4 non-causal against the F
+frames), the masked next-token cross entropy of "labels" (< 0 masked);
+differentiable, no cache written, each layer under
+`torch.utils.checkpoint` when `cfg.remat == "layer"`.  `params` (the
+module's parameter names) takes the place of the module's weights, as
+in `LM.loss`.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .module import ParamSpec
@@ -46,6 +58,7 @@ from .layers import attention as attn
 from .layers import mlp as mlpl
 from .layers.norms import rmsnorm, rmsnorm_spec
 from .layers.rope import rope_angles
+from .lm import xent
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -161,22 +174,65 @@ class EncDecLM(nn.Module):
                 "cross_v": cross}
 
     # ----------------------------------------------------------- forward
+    def _enc_layer(self, w, x, cos, sin):
+        """One encoder layer on its weights `w` (a block or a dict of the
+        same names)."""
+        cfg = self.cfg
+        h = rmsnorm(w["ln1"], x, cfg.norm_eps)
+        q, k, v = attn.qkv(w["mixer"], h, cfg, cos, sin)
+        o = attn.full_attention(q, k, v, causal=False, impl=self.impl)
+        x = x + attn.out_proj(w["mixer"], o)
+        return x + mlpl.mlp(w["ffn"], rmsnorm(w["ln2"], x, cfg.norm_eps))
+
+    def _layer(self, fn, *args):
+        """fn(*args), under `torch.utils.checkpoint` when training with
+        `cfg.remat == "layer"`."""
+        if self.cfg.remat == "layer" and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def _encode(self, x, blocks, norm):
+        """The encoder on x [B, F, D] in the compute dtype, its layers'
+        weights `blocks` and its final norm's `norm`."""
+        cfg = self.cfg
+        B, F, _ = x.shape
+        pos = torch.arange(F, device=x.device)[None].expand(B, F)
+        cos, sin = rope_angles(cfg.hd, cfg.rope_theta, pos)
+        for w in blocks:
+            x = self._layer(self._enc_layer, w, x, cos, sin)
+        return rmsnorm(norm, x, cfg.norm_eps)
+
     @torch.no_grad()
     def encode(self, enc_feats: torch.Tensor) -> torch.Tensor:
         """enc_feats [B, F, D] (the stub frontend's output) -> [B, F, D]
         in the compute dtype."""
+        return self._encode(enc_feats.to(self.device, self.cfg.compute_dtype),
+                            self.enc_blocks, self.enc_norm)
+
+    def _dec_layer(self, w, x, enc_out, cos, sin, seg=None, c=None):
+        """One decoder layer on its weights `w` over the whole sequence:
+        causal self attention (masked to `seg`'s segments), cross
+        attention against all F frames of `enc_out`, the FFN.  With `c`
+        (this layer's cache leaves) it is prefill: the self caches'
+        first L positions and the cross caches are written."""
         cfg = self.cfg
-        x = enc_feats.to(self.device, cfg.compute_dtype)
-        B, F, _ = x.shape
-        pos = torch.arange(F, device=x.device)[None].expand(B, F)
-        cos, sin = rope_angles(cfg.hd, cfg.rope_theta, pos)
-        for p in self.enc_blocks:
-            h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-            q, k, v = attn.qkv(p["mixer"], h, cfg, cos, sin)
-            o = attn.full_attention(q, k, v, causal=False, impl=self.impl)
-            x = x + attn.out_proj(p["mixer"], o)
-            x = x + mlpl.mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
-        return rmsnorm(self.enc_norm, x, cfg.norm_eps)
+        h = rmsnorm(w["ln1"], x, cfg.norm_eps)
+        q, k, v = attn.qkv(w["self_attn"], h, cfg, cos, sin)
+        if c is not None:
+            L = x.shape[1]
+            c["self_k"][:, :L] = k.to(c["self_k"].dtype)
+            c["self_v"][:, :L] = v.to(c["self_v"].dtype)
+        x = x + attn.out_proj(w["self_attn"], attn.full_attention(
+            q, k, v, causal=True, impl=self.impl, segment_ids=seg))
+        h = rmsnorm(w["lnx"], x, cfg.norm_eps)
+        q = attn.cross_q(w["cross_attn"], h, cfg)
+        kx, vx = attn.cross_kv(w["cross_attn"], enc_out, cfg)
+        if c is not None:
+            c["cross_k"].copy_(kx)
+            c["cross_v"].copy_(vx)
+        x = x + attn.out_proj(w["cross_attn"], attn.full_attention(
+            q, kx, vx, causal=False, impl=self.impl))
+        return x + mlpl.mlp(w["ffn"], rmsnorm(w["ln2"], x, cfg.norm_eps))
 
     def _logits(self, x):
         x = rmsnorm(self.final_norm, x, self.cfg.norm_eps)
@@ -195,22 +251,8 @@ class EncDecLM(nn.Module):
         pos = torch.arange(L, device=tokens.device)[None].expand(B, L)
         cos, sin = rope_angles(cfg.hd, cfg.rope_theta, pos)
         for i, p in enumerate(self.dec_blocks):
-            h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-            q, k, v = attn.qkv(p["self_attn"], h, cfg, cos, sin)
-            cache["self_k"][i, :, :L] = k.to(cache["self_k"].dtype)
-            cache["self_v"][i, :, :L] = v.to(cache["self_v"].dtype)
-            o = attn.full_attention(q, k, v, causal=True, impl=self.impl)
-            x = x + attn.out_proj(p["self_attn"], o)
-
-            h = rmsnorm(p["lnx"], x, cfg.norm_eps)
-            q = attn.cross_q(p["cross_attn"], h, cfg)
-            kx, vx = attn.cross_kv(p["cross_attn"], enc_out, cfg)
-            cache["cross_k"][i] = kx.to(cache["cross_k"].dtype)
-            cache["cross_v"][i] = vx.to(cache["cross_v"].dtype)
-            o = attn.full_attention(q, kx, vx, causal=False, impl=self.impl)
-            x = x + attn.out_proj(p["cross_attn"], o)
-
-            x = x + mlpl.mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+            x = self._dec_layer(p, x, enc_out, cos, sin,
+                                c={k: v[i] for k, v in cache.items()})
         return self._logits(x[:, -1:]), state, cache
 
     @torch.no_grad()
@@ -242,3 +284,41 @@ class EncDecLM(nn.Module):
 
             x = x + mlpl.mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
         return self._logits(x), state, cache
+
+    # ---------------------------------------------------------- training
+    def loss(self, state, batch, params=None):
+        """The masked next-token cross entropy of `batch` {"enc_feats"
+        [B, F, D], "tokens", "labels", optionally "segment_ids"} ->
+        (loss, {}, {"loss"})."""
+        cfg = self.cfg
+        P = dict(self.named_parameters()) if params is None else params
+        tokens, labels = batch["tokens"], batch["labels"]
+        enc_out = self._encode(
+            batch["enc_feats"].to(tokens.device, cfg.compute_dtype),
+            [_nested(P, f"enc_blocks.{i}.") for i in range(self.n_enc)],
+            P["enc_norm"])
+        B, S = tokens.shape
+        x = P["embed"][tokens]
+        pos = torch.arange(S, device=x.device)[None].expand(B, S)
+        cos, sin = rope_angles(cfg.hd, cfg.rope_theta, pos)
+        seg = batch.get("segment_ids")
+        for i in range(self.n_dec):
+            x = self._layer(self._dec_layer, _nested(P, f"dec_blocks.{i}."),
+                            x, enc_out, cos, sin, seg)
+        x = rmsnorm(P["final_norm"], x, cfg.norm_eps)
+        loss = xent(x @ P["unembed"], labels)
+        return loss, {}, {"loss": loss.detach()}
+
+
+def _nested(P: dict, prefix: str) -> dict:
+    """The entries of P under `prefix` as a nested dict by the rest of
+    their dotted names (one layer's weights, as its block reads them)."""
+    out: dict = {}
+    for name, t in P.items():
+        if name.startswith(prefix):
+            *path, leaf = name[len(prefix):].split(".")
+            node = out
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = t
+    return out

@@ -2,7 +2,8 @@
 (one token against a KV cache), as the JAX package's
 `models/layers/attention.py`.
 
-Prefill attention goes through `kernels.ops.flash_attention` and decode
+Prefill (and training) attention goes through `kernels.ops.flash_attention`
+(segment-masked on packed training batches) and decode
 attention through `kernels.ops.decode_attention`: the Hopper kernels on
 the card, their plain versions on the CPU (`impl="ref"` forces the
 plain versions).  `naive_attention` is the test oracle only.  The
@@ -60,30 +61,41 @@ def qkv(p, x: torch.Tensor, cfg, cos, sin, rope_fn=apply_rope):
     return rope_fn(q, cos, sin), rope_fn(k, cos, sin), v
 
 
-def naive_attention(q, k, v, causal: bool = True) -> torch.Tensor:
+def naive_attention(q, k, v, causal: bool = True,
+                    segment_ids=None) -> torch.Tensor:
     """O(L²)-memory oracle (tests only), the JAX package's arithmetic:
     f32 scores, softmax, probabilities cast to the input dtype before
-    the product with v.  q [B, L, H, hd], k/v [B, L, KV, hd]."""
+    the product with v.  q [B, L, H, hd], k/v [B, L, KV, hd];
+    `segment_ids` [B, L] masks keys of another segment."""
     B, L, H, hd = q.shape
     g = H // k.shape[2]
     k = k.repeat_interleave(g, dim=2)
     v = v.repeat_interleave(g, dim=2)
     logits = torch.einsum("blhk,bmhk->bhlm", q, k).float() * hd ** -0.5
+    mask = None
     if causal:
         mask = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    if segment_ids is not None:
+        seg = (segment_ids[:, :, None] == segment_ids[:, None, :])[:, None]
+        mask = seg if mask is None else mask & seg
+    if mask is not None:
         logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhlm,bmhk->blhk", probs, v)
 
 
 def full_attention(q, k, v, causal: bool = True,
-                   impl: Optional[str] = None) -> torch.Tensor:
+                   impl: Optional[str] = None,
+                   segment_ids=None) -> torch.Tensor:
     """q [B, L, H, hd], k/v [B, F, KV, hd] -> [B, L, H, hd] through
     `ops.flash_attention` (K4), which reads and writes these layouts by
     strides: the transposes are views.  F = L when causal; not causal, F
-    may differ (cross attention: the softmax over all F keys)."""
+    may differ (cross attention: the softmax over all F keys).
+    `segment_ids` [B, L] (F = L) masks keys of another segment: the
+    packed training batches of `data.packed_batches`."""
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=causal, impl=impl)
+                            v.transpose(1, 2), causal=causal, impl=impl,
+                            segment_ids=segment_ids)
     return o.transpose(1, 2)
 
 

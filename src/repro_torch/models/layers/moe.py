@@ -1,4 +1,4 @@
-"""Mixture-of-Experts FFN, forward (PyTorch port of the JAX package's
+"""Mixture-of-Experts FFN (PyTorch port of the JAX package's
 `models/layers/moe.py`): top-k routing with the paper's congestion-aware
 gate, group-local capacity-bounded dispatch, SwiGLU experts.
 
@@ -18,10 +18,17 @@ gate, group-local capacity-bounded dispatch, SwiGLU experts.
   has only zero rows, and silu(0)·0 = 0 in the down projection), so the
   kernel reads no weight of an empty expert: the same function.
 * The new state is `0.9·load_ema + 0.1·counts`.
-
-The custom VJPs of the JAX layer (training) come with ROADMAP P13d.
-`cfg.moe_ep_scatter` selects a sharded lowering of the combine that
-computes the same y; the port has one device and ignores it.
+* Dispatch and combine are the JAX layer's custom VJPs as
+  `autograd.Function`s with the same backward arithmetic: dispatch
+  gathers token rows into the expert slots and its backward gathers the
+  slots' gradients back at (expert, position) and sums over K, not a
+  scatter-add; combine gathers the slots at each token's (expert,
+  position) and sums them weighted by the gate, its backward gathers
+  the tokens' gradients into the slots.  `cfg.moe_ep_scatter` selects
+  the JAX layer's expert-parallel variants (combine forward and
+  dispatch backward as scatter-adds into token space), which compute
+  the same values in another summation order.  The load EMAs, the
+  router gap and the sort's ranks carry no gradient.
 """
 from __future__ import annotations
 
@@ -58,13 +65,103 @@ def _capacity(tokens_per_group: int, cfg) -> int:
     return max(4, min(cap, tokens_per_group))
 
 
+def _segsum_to_tokens(src, slot_tok, w_slot, Tg: int):
+    """sum_e,c w_slot[g,e,c] * src[g,e,c,:] into token rows [G, Tg, D]
+    (a scatter-add in slot order; empty slots land on a dropped row)."""
+    G, E, C, D = src.shape
+    flat = (src * w_slot[..., None].to(src.dtype)).reshape(G, E * C, D)
+    idx = slot_tok.clamp_max(Tg).reshape(G, E * C, 1).expand(G, E * C, D)
+    out = torch.zeros((G, Tg + 1, D), dtype=src.dtype, device=src.device)
+    return out.scatter_add_(1, idx, flat)[:, :Tg]
+
+
+def _groups(t):
+    return torch.arange(t.shape[0], device=t.device)
+
+
+class _Dispatch(torch.autograd.Function):
+    """x [G, Tg, D] -> the expert slots [G, E, C, D]: slot (e, c) holds
+    token slot_tok[g, e, c] (zero where `valid` is 0).  Backward: the
+    slots' gradients gathered at each assignment's (e_idx, p_idx) and
+    summed over K where kept; with `ep`, a scatter-add of the slots into
+    token space instead (the JAX layer's `_dispatch_ep`)."""
+
+    @staticmethod
+    def forward(ctx, x, slot_tok, valid, e_idx, p_idx, keep, ep):
+        gi = _groups(x)[:, None, None]
+        Tg = x.shape[1]
+        ctx.save_for_backward(slot_tok, valid, e_idx, p_idx, keep)
+        ctx.ep, ctx.Tg, ctx.dtype = ep, Tg, x.dtype
+        return x[gi, slot_tok.clamp_max(Tg - 1)] * valid[..., None].to(
+            x.dtype)
+
+    @staticmethod
+    def backward(ctx, d_buf):
+        slot_tok, valid, e_idx, p_idx, keep = ctx.saved_tensors
+        if ctx.ep:
+            dx = _segsum_to_tokens(d_buf, slot_tok, valid, ctx.Tg)
+        else:
+            d_buf = d_buf * valid[..., None].to(d_buf.dtype)
+            dslots = d_buf[_groups(d_buf)[:, None, None], e_idx, p_idx]
+            dx = (dslots * keep[..., None].to(d_buf.dtype)).sum(2)
+        return dx.to(ctx.dtype), None, None, None, None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """The expert outputs [G, E, C, D] and the gate weights w [G, Tg, K]
+    -> y [G, Tg, D] = Σ_k w[g,t,k]·out[g, e_idx, p_idx]; with `ep` a
+    scatter-add of the weighted slots into token space (the JAX layer's
+    `_combine_ep`).  Backward: d_out the tokens' gradients gathered into
+    the slots times their weight; d_w each assignment's dot of dy with
+    its slot (with `ep` taken in slot space and scattered to (t, k))."""
+
+    @staticmethod
+    def forward(ctx, out, w, slot_tok, slot_k, valid, e_idx, p_idx, ep):
+        gi = _groups(out)[:, None, None]
+        Tg = w.shape[1]
+        ctx.save_for_backward(out, w, slot_tok, slot_k, valid, e_idx, p_idx)
+        ctx.ep = ep
+        if ep:
+            w_slot = w[gi, slot_tok.clamp_max(Tg - 1), slot_k].float() \
+                * valid
+            return _segsum_to_tokens(out, slot_tok, w_slot, Tg)
+        slots = out[gi, e_idx, p_idx]                      # [G, Tg, K, D]
+        return torch.einsum("gtk,gtkd->gtd", w.to(out.dtype), slots)
+
+    @staticmethod
+    def backward(ctx, dy):
+        out, w, slot_tok, slot_k, valid, e_idx, p_idx = ctx.saved_tensors
+        G, E, C, D = out.shape
+        Tg, K = w.shape[1], w.shape[2]
+        gi = _groups(out)[:, None, None]
+        tok = slot_tok.clamp_max(Tg - 1)
+        dy_slots = dy[gi, tok]                             # [G, E, C, D]
+        w_slots = w[gi, tok, slot_k]                       # [G, E, C]
+        d_out = dy_slots * (w_slots.float() * valid)[..., None].to(dy.dtype)
+        if ctx.ep:
+            dw_slot = (dy_slots * out).sum(-1).float() * valid
+            d_w = torch.zeros((G, Tg + 1, K), dtype=torch.float32,
+                              device=dy.device)
+            d_w.index_put_((gi.expand(G, E, C).reshape(-1),
+                            slot_tok.clamp_max(Tg).reshape(-1),
+                            slot_k.reshape(-1)), dw_slot.reshape(-1),
+                           accumulate=True)
+            d_w = d_w[:, :Tg]
+        else:
+            slots = out[gi, e_idx, p_idx]
+            d_w = torch.einsum("gtd,gtkd->gtk", dy, slots)
+        return (d_out.to(out.dtype), d_w.to(w.dtype), None, None, None,
+                None, None, None)
+
+
 def moe(p, state: dict, x: torch.Tensor, cfg, impl: Optional[str] = None):
     """x [B, L, D] -> (y [B, L, D], new_state, metrics).  p holds router
     [D, E] (float32) and wg, wu [E, D, f], wd [E, f, D] (compute dtype);
     state {"load_ema": [E] float32}.  Metrics: moe_imbalance (max/mean
     expert load), moe_drop_frac (share of assignments dropped) and
     router_gap, the smallest gap between a token's K-th and (K+1)-th
-    selection logits over max(1, |K-th|) (inf when K = E)."""
+    selection logits over max(1, |K-th|) (inf when K = E).
+    Differentiable in x and p (the training loss)."""
     B, L, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * L
@@ -77,7 +174,7 @@ def moe(p, state: dict, x: torch.Tensor, cfg, impl: Optional[str] = None):
 
     logits = xt.float() @ p["router"]                      # [G, Tg, E]
     probs = torch.softmax(logits, dim=-1)
-    sel = logits
+    sel = logits.detach()
     if cfg.router_bias == "congestion":
         st = moe_bridge.CongestionState(
             state["load_ema"], torch.zeros((), dtype=torch.int32,
@@ -85,7 +182,7 @@ def moe(p, state: dict, x: torch.Tensor, cfg, impl: Optional[str] = None):
         cap = torch.full((E,), T * cfg.top_k / E * 1.3, dtype=torch.float32,
                          device=dev)
         bias = moe_bridge.congestion_bias(st, cap, eta=cfg.router_bias_eta)
-        sel = logits + bias[None, None, :]
+        sel = sel + bias[None, None, :]
     ranked, order = torch.sort(sel, dim=-1, descending=True, stable=True)
     top_idx = order[..., :K]                               # [G, Tg, K]
     if K < E:
@@ -106,17 +203,23 @@ def moe(p, state: dict, x: torch.Tensor, cfg, impl: Optional[str] = None):
     counts = flat.sum(dim=(0, 1)).float()                  # [E], pre-drop
 
     # slot tables [G, E, C]: the token in each expert slot (Tg: empty)
+    # and its top-k slot
     g_idx = torch.arange(G, device=dev)[:, None, None].expand(G, Tg, K)
     tok = torch.arange(Tg, device=dev)[None, :, None].expand(G, Tg, K)
+    at = (g_idx, top_idx, torch.where(keep, pos, C))
     slot_tok = torch.full((G, E, C + 1), Tg, dtype=torch.long, device=dev)
-    slot_tok[g_idx, top_idx, torch.where(keep, pos, C)] = tok
+    slot_tok[at] = tok
     slot_tok = slot_tok[..., :C]
-    valid = (slot_tok < Tg).to(cd)
+    slot_k = torch.zeros((G, E, C + 1), dtype=torch.long, device=dev)
+    slot_k[at] = torch.arange(K, device=dev)[None, None, :].expand(G, Tg, K)
+    slot_k = slot_k[..., :C]
+    valid = (slot_tok < Tg).float()
+    p_idx = torch.where(keep, pos, 0)
+    ep = bool(cfg.moe_ep_scatter)
 
     # dispatch, the expert SwiGLU through K7, combine
-    xc = xt.to(cd)
-    buf = xc[torch.arange(G, device=dev)[:, None, None],
-             slot_tok.clamp_max(Tg - 1)] * valid[..., None]  # [G, E, C, D]
+    buf = _Dispatch.apply(xt.to(cd), slot_tok, valid, top_idx, p_idx, keep,
+                          ep)                              # [G, E, C, D]
     buf = buf.transpose(0, 1).reshape(E, G * C, D)
     active = counts > 0
     g = ops.moe_gmm(buf, p["wg"], impl=impl, active=active)
@@ -124,9 +227,8 @@ def moe(p, state: dict, x: torch.Tensor, cfg, impl: Optional[str] = None):
     out = ops.moe_gmm(F.silu(g) * u, p["wd"], impl=impl,
                       active=active)                       # [E, G·C, D]
     out = out.reshape(E, G, C, D).transpose(0, 1)          # [G, E, C, D]
-    slots = out[g_idx, top_idx, torch.where(keep, pos, 0)]  # [G, Tg, K, D]
     w = (gate * keep).to(cd)
-    y = torch.einsum("gtk,gtkd->gtd", w, slots)
+    y = _Combine.apply(out, w, slot_tok, slot_k, valid, top_idx, p_idx, ep)
 
     new_state = {"load_ema": 0.9 * state["load_ema"] + 0.1 * counts}
     metrics = {"moe_imbalance": moe_bridge.load_imbalance(counts),

@@ -7,6 +7,7 @@ hybrid and VLM families (PyTorch port of the JAX package's
     LM(cfg).init_cache_specs(batch, max_len)       -> cache spec tree
     LM(cfg).prefill(state, cache, tokens)          -> (logits, state, cache)
     LM(cfg).decode_step(state, cache, tokens, pos) -> (logits, state, cache)
+    LM(cfg).loss(state, batch, params=None)        -> (loss, state, metrics)
 
 Weights live in the module (load them with `convert.lm_params_from_numpy`
 and `load_state_dict`): the matrices (the Mamba conv weights and biases
@@ -31,7 +32,20 @@ moe_imbalance and moe_drop_frac (means over the layers) and router_gap
 (the VLM) rotates by M-RoPE; prefill and decode feed the text
 positions to all three of its components, as the JAX package does.
 The VLM's stub vision frontend (`vis_embed`, per-component positions)
-enters only through the JAX package's training loss, not ported.
+enters only through the training loss.
+
+`loss` is the JAX package's `LM.loss`: the masked next-token cross
+entropy of a batch {"tokens", "labels" (< 0 masked), and optionally
+"segment_ids" (packed sequences: attention masked to the query's
+segment), "positions" ([B, S], or [3, B, S] under M-RoPE) and
+"vis_embed" [B, S, d]}, differentiable.  It writes no cache.  With
+`cfg.remat == "layer"` each layer runs under
+`torch.utils.checkpoint` (non-reentrant), so its forward, K4 and K7
+included, runs again in the backward pass.  `params` (the module's
+parameter names, e.g. the float32 master weights of a train state cast
+to the compute dtype) takes the place of the module's own weights; the
+train step passes them.  A config with a Mamba2 mixer raises
+NotImplementedError: its backward needs one for K6 (ROADMAP P13e).
 
 `impl` steers every kernel of the model (K4 and K5 in attention, K6 in
 the Mamba prefill, K7 in the MoE FFN): None takes the Hopper kernels on
@@ -44,6 +58,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .module import ParamSpec
@@ -187,10 +202,12 @@ class LM(nn.Module):
     # ----------------------------------------------------------- forward
     def _angles(self, positions):
         """positions [B, L] -> (cos, sin); under M-RoPE every component
-        takes them (text-only tokens)."""
+        takes them (text-only tokens), or positions [3, B, L] give each
+        component its own."""
         cfg = self.cfg
         if cfg.mrope_sections:
-            positions = positions[None].expand(3, *positions.shape)
+            if positions.dim() == 2:
+                positions = positions[None].expand(3, *positions.shape)
             return mrope_angles(cfg.hd, cfg.rope_theta, positions,
                                 cfg.mrope_sections)
         return rope_angles(cfg.hd, cfg.rope_theta, positions)
@@ -199,56 +216,84 @@ class LM(nn.Module):
         w = self.embed.t() if self.cfg.tie_embeddings else self.unembed
         return x @ w
 
-    def _blocks(self, x, cos, sin, state, cache, pos=None):
-        """All layers; prefill when pos is None, else one decode step.
-        Each layer's cache leaves are written in place; returns x and the
-        new model state, and sets `metrics`."""
+    def _layer(self, j, w, x, cos, sin, ema, c=None, pos=None, seg=None):
+        """Layer slot j on its weights `w` (a block, or a dict of the same
+        names) -> (x, the MoE layer's new load EMA and metrics, or None,
+        None).  With a cache `c` (this layer's leaves, written in place)
+        it is prefill, or one decode step at `pos`; without one it is the
+        training forward, attention masked to `seg`'s segments."""
         cfg = self.cfg
-        new_ema, mets = {}, []
-        for i, p in enumerate(self.layers):
-            g, j = divmod(i, self.period)
-            key = f"slot_{j:02d}"
-            c = {k: v[g] for k, v in cache[key].items()}
-            h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-            if self.pattern[j][0] == "mamba":
-                if pos is None:
-                    out, new = mb.mamba(p, h, cfg, impl=self.impl)
-                else:
-                    out, new = mb.mamba_decode(p, c, h, cfg)
-                for k, v in new.items():
-                    c[k].copy_(v)
-                x = x + out
+        h = rmsnorm(w["ln1"], x, cfg.norm_eps)
+        if self.pattern[j][0] == "mamba":
+            if pos is None:
+                out, new = mb.mamba(w, h, cfg, impl=self.impl)
             else:
-                q, k, v = attn.qkv(p, h, cfg, cos, sin)
-                if pos is None:
+                out, new = mb.mamba_decode(w, c, h, cfg)
+            for k, v in new.items():
+                c[k].copy_(v)
+            x = x + out
+        else:
+            q, k, v = attn.qkv(w, h, cfg, cos, sin)
+            if pos is not None:
+                attn.cache_update(c["k"], c["v"], k, v, pos)
+                o = attn.decode_attention(q, c["k"], c["v"], pos + 1,
+                                          impl=self.impl)
+            else:
+                if c is not None:
                     L = x.shape[1]
                     c["k"][:, :L] = k.to(c["k"].dtype)
                     c["v"][:, :L] = v.to(c["v"].dtype)
-                    o = attn.full_attention(q, k, v, causal=True,
-                                            impl=self.impl)
-                else:
-                    attn.cache_update(c["k"], c["v"], k, v, pos)
-                    o = attn.decode_attention(q, c["k"], c["v"], pos + 1,
-                                              impl=self.impl)
-                x = x + attn.out_proj(p, o)
-            if "router" in p:
-                h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-                st = {"load_ema": state[key]["load_ema"][g]}
-                out, st, met = moel.moe(p, st, h, cfg, impl=self.impl)
-                new_ema.setdefault(key, []).append(st["load_ema"])
+                o = attn.full_attention(q, k, v, causal=True,
+                                        impl=self.impl, segment_ids=seg)
+            x = x + attn.out_proj(w, o)
+        if "router" in w:
+            h = rmsnorm(w["ln2"], x, cfg.norm_eps)
+            out, st, met = moel.moe(w, {"load_ema": ema}, h, cfg,
+                                    impl=self.impl)
+            return x + out, st["load_ema"], met
+        if "wg" in w:
+            x = x + mlpl.mlp(w, rmsnorm(w["ln2"], x, cfg.norm_eps))
+        return x, None, None
+
+    def _blocks(self, x, cos, sin, state, cache=None, pos=None, seg=None,
+                params=None):
+        """All layers -> (x, the new model state, the MoE metrics
+        {"moe_imbalance", "moe_drop_frac" (means), "router_gap"
+        (minimum)}, {} without MoE).  With a cache: prefill when pos is
+        None, else one decode step, each layer's cache leaves written in
+        place.  Without: the training forward on `params` (the module's
+        parameter names), no cache, each layer under
+        `torch.utils.checkpoint` when `cfg.remat == "layer"` and autograd
+        records."""
+        cfg = self.cfg
+        new_ema, mets = {}, []
+        for i, layer in enumerate(self.layers):
+            g, j = divmod(i, self.period)
+            key = f"slot_{j:02d}"
+            ema = state[key]["load_ema"][g] if "router" in layer else None
+            if cache is not None:
+                c = {k: v[g] for k, v in cache[key].items()}
+                x, ema, met = self._layer(j, layer, x, cos, sin, ema, c, pos)
+            else:
+                w = {name: params[f"layers.{i}.{name}"]
+                     for name in layer.keys()}
+                args = (j, w, x, cos, sin, ema, None, None, seg)
+                x, ema, met = (checkpoint(self._layer, *args,
+                                          use_reentrant=False)
+                               if cfg.remat == "layer"
+                               and torch.is_grad_enabled()
+                               else self._layer(*args))
+            if met is not None:
+                new_ema.setdefault(key, []).append(ema)
                 mets.append(met)
-                x = x + out
-            elif "wg" in p:
-                x = x + mlpl.mlp(p, rmsnorm(p["ln2"], x, cfg.norm_eps))
-        self.metrics = {}
+        metrics = {}
         if mets:
             for name in ("moe_imbalance", "moe_drop_frac"):
-                self.metrics[name] = torch.stack(
-                    [m[name] for m in mets]).mean()
-            self.metrics["router_gap"] = torch.stack(
+                metrics[name] = torch.stack([m[name] for m in mets]).mean()
+            metrics["router_gap"] = torch.stack(
                 [m["router_gap"] for m in mets]).min()
         return x, {key: {"load_ema": torch.stack(v)}
-                   for key, v in new_ema.items()}
+                   for key, v in new_ema.items()}, metrics
 
     @torch.no_grad()
     def prefill(self, state, cache, tokens):
@@ -260,7 +305,7 @@ class LM(nn.Module):
         x = self.embed[tokens]
         positions = torch.arange(L, device=tokens.device)[None].expand(B, L)
         cos, sin = self._angles(positions)
-        x, state = self._blocks(x, cos, sin, state, cache)
+        x, state, self.metrics = self._blocks(x, cos, sin, state, cache)
         x = rmsnorm(self.final_norm, x[:, -1:], cfg.norm_eps)
         return self._logits(x)[:, 0], state, cache
 
@@ -271,6 +316,48 @@ class LM(nn.Module):
         cfg = self.cfg
         x = self.embed[tokens]
         cos, sin = self._angles(pos[:, None])
-        x, state = self._blocks(x, cos, sin, state, cache, pos)
+        x, state, self.metrics = self._blocks(x, cos, sin, state, cache,
+                                              pos)
         x = rmsnorm(self.final_norm, x, cfg.norm_eps)
         return self._logits(x)[:, 0], state, cache
+
+    # ---------------------------------------------------------- training
+    def loss(self, state, batch, params=None):
+        """The masked next-token cross entropy of `batch` -> (loss, new
+        state, metrics {"loss", and the MoE layers' "moe_imbalance",
+        "moe_drop_frac" (means) and "router_gap" (minimum)})."""
+        cfg = self.cfg
+        if any(mixer == "mamba" for mixer, _ in self.pattern):
+            raise NotImplementedError(
+                f"{cfg.name}: training a Mamba2 mixer needs a backward for "
+                "K6 (ssd_scan), ROADMAP P13e")
+        P = dict(self.named_parameters()) if params is None else params
+        tokens, labels = batch["tokens"], batch["labels"]
+        B, S = tokens.shape
+        x = P["embed"][tokens]
+        if "vis_embed" in batch:                       # VLM stub frontend
+            x = x + batch["vis_embed"].to(cfg.compute_dtype)
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, device=tokens.device)[None].expand(
+                B, S)
+        cos, sin = self._angles(positions)
+        x, new_state, metrics = self._blocks(
+            x, cos, sin, state, seg=batch.get("segment_ids"), params=P)
+        x = rmsnorm(P["final_norm"], x, cfg.norm_eps)
+        w_out = P["embed"].t() if cfg.tie_embeddings else P["unembed"]
+        loss = xent(x @ w_out, labels)
+        return loss, new_state, {"loss": loss.detach(), **metrics}
+
+def xent(logits, labels):
+    """Masked next-token cross entropy (labels < 0 are padding), the JAX
+    package's `_xent`: the float32 log-sum-exp of each row less the
+    label's logit, summed over the unmasked positions over their count.
+    The label's logit is a gather, which equals the JAX one-hot
+    contraction bit for bit (one nonzero term)."""
+    mask = labels >= 0
+    lab = labels.clamp_min(0).long()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    ll = torch.gather(logits, -1, lab[..., None])[..., 0].float()
+    nll = (lse - ll) * mask
+    return nll.sum() / mask.sum().clamp_min(1)

@@ -21,7 +21,8 @@ largest distance at the prefill beside it:
   plain version;
 * `p_two_parts`, `p_three_parts`: the plain prefill attention with its
   probabilities P carried as two or three bfloat16 parts into the
-  product with V (K4 carries two), the rest float32.
+  product with V (K4 carries two), the rest float32
+  (`chip_smoke.split_p`).
 
 With --profile it instead times one traced bf16 serve of each
 architecture after an untraced one (`chip_smoke.profile_decode`: device
@@ -36,27 +37,6 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = {"whisper-base": "reference_serve_whisper.json",
            "qwen2-vl-7b": "reference_serve_qwen2vl.json",
            "qwen3-0.6b": "reference_serve.json"}
-
-
-def split_flash(torch, ref, parts):
-    """`ref.flash_attention_ref` with P carried as `parts` bf16 parts."""
-    def flash(q, k, v, causal=True):
-        S, hd, g = q.shape[2], q.shape[3], q.shape[1] // k.shape[1]
-        kf = k.float().repeat_interleave(g, dim=1)
-        vf = v.float().repeat_interleave(g, dim=1)
-        s = (q.float() @ kf.transpose(-1, -2)) * hd ** -0.5
-        if causal:
-            keep = torch.ones((S, S), dtype=torch.bool,
-                              device=q.device).tril()
-            s = torch.where(keep, s, ref.NEG_INF)
-        p = torch.exp(s - s.amax(-1, keepdim=True))
-        acc, rest = 0.0, p
-        for _ in range(parts):
-            piece = rest.to(torch.bfloat16).float()
-            acc = acc + piece @ vf
-            rest = rest - piece
-        return (acc / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
-    return flash
 
 
 @contextlib.contextmanager
@@ -77,7 +57,7 @@ def plain_only(fn):
 
 
 def gaps(torch, cs, model, prompts):
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     variants = {
         "plain": ("ref", contextlib.nullcontext),
         "witness": ("ref", lambda: cs.reversed_keys(torch)),
@@ -87,10 +67,8 @@ def gaps(torch, cs, model, prompts):
             ops, "decode_attention", plain_only(ops.decode_attention))),
         "k5_only": (None, lambda: patched(
             ops, "flash_attention", plain_only(ops.flash_attention))),
-        "p_two_parts": ("ref", lambda: patched(
-            ref, "flash_attention_ref", split_flash(torch, ref, 2))),
-        "p_three_parts": ("ref", lambda: patched(
-            ref, "flash_attention_ref", split_flash(torch, ref, 3))),
+        "p_two_parts": ("ref", lambda: cs.split_p(torch, 2)),
+        "p_three_parts": ("ref", lambda: cs.split_p(torch, 3)),
     }
     runs = {}
     for name, (impl, context) in variants.items():

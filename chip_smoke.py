@@ -231,10 +231,11 @@
    on the card, one K4 per layer a prefill and one K5 a decode step,
    held to the same witness.  Each serve prints tokens/s, prefill ms a
    request, decode ms a step and peak memory.
-6. The `train` phase (`"phase": "train"` records, ~55 s; it runs after
+6. The `train` phase (`"phase": "train"` records, ~70 s; it runs after
    the `router` phase and before the serves of 4. and 5., whose models
    stay in memory for --profile): K4's backward
-   (`flash_attention_bwd.cu`, three launches a call) against the
+   (`flash_attention_bwd.cu`, three launches a call; bfloat16 at hd 64
+   and 128 on the tensor cores) against the
    gradient of K4's plain version under autograd at the training
    shapes, Qwen3-0.6B's q [8, 16, 512, 128] against [8, 8, 512, 128]
    causal on packed segments, Qwen2-VL-7B's [2, 28, 512, 128] against [2,
@@ -250,7 +251,8 @@
    @ [64, 2048, 1024], C 80 (40 of 64 experts active) and 640, float32
    to 1e-5 of Σ|·| and bfloat16 by the same ulp rule; each record with
    ms, the bound, the plain version's ms and, as yardsticks, SDPA's
-   forward + backward or two torch.bmm calls.  Then the training path,
+   backward alone (K4's library time) and its forward + backward, or
+   two torch.bmm calls.  Then the training path,
    `train.build_train_step` over `LM.loss` / `EncDecLM.loss` at full
    width: Qwen3-0.6B in float32 at 4 of 28 layers, 3 AdamW steps of 2 x
    128 packed tokens, the losses, gradient norms and learning rates held
@@ -262,10 +264,14 @@
    within 1.5x the largest witness gap from plain (`train_gap_rule`):
    step 1's loss in every run, the later steps' losses and gradient
    norms with Qwen3, Qwen3's step-1 gradient leaf by leaf
-   (`leaf_gap_rule`); whisper-base's and OLMoE's step-1 gradient in
+   (`leaf_gap_rule`); whisper-base again in bfloat16 from a start whose
+   stacked leaves take a per-layer fan-in (`per_layer_fan_in`; its
+   largest score recorded beside the parity start's), its step-1
+   gradient leaf by leaf; whisper-base's and OLMoE's step-1 gradient in
    float32 (`f32_step1_check`: loss, norm and leaves), where rounding
    neither saturates whisper's softmax into flips nor flips OLMoE's
-   routes; each
+   routes; the expert-parallel OLMoE's step-1 loss and gradient
+   computed twice, bit for bit; each
    kernel run launches K4 twice a layer a step (the remat recomputes
    it), K4's backward once, with MoE K7 and its backward six times a
    layer a step, and calls no plain version.  Prints ms a step, tokens/s,
@@ -376,6 +382,21 @@ TRAIN_ENCDEC_SEQ, TRAIN_ENCDEC_STEPS = 128, 2
 # K4's backward in float32 against the plain version's gradient: of each
 # gradient's largest magnitude (measured ~2e-6)
 K4_BWD_RTOL = 1e-4
+# K4's backward at the training path's shapes: (B, H, KV, Lq, Lk, hd,
+# causal, packed segments, case)
+K4_BWD_FRAMES = 1500
+K4_BWD_SHAPES = [
+    (8, 16, 8, 512, 512, 128, True, True,
+     "qwen3 train [8,16,512,128] causal packed"),
+    (2, 28, 4, 512, 512, 128, True, True,
+     "qwen2vl train [2,28,512,128] G=7 causal packed"),
+    (8, 8, 8, K4_BWD_FRAMES, K4_BWD_FRAMES, 64, False, False,
+     f"whisper encoder [8,8,{K4_BWD_FRAMES},64] non-causal"),
+    (8, 8, 8, TRAIN_ENCDEC_SEQ, TRAIN_ENCDEC_SEQ, 64, True, True,
+     f"whisper decoder [8,8,{TRAIN_ENCDEC_SEQ},64] causal packed")] + [
+    (8, 8, 8, L, K4_BWD_FRAMES, 64, False, False,
+     f"whisper cross L={L} against F={K4_BWD_FRAMES}")
+    for L in (17, 333, 512)]
 # K4's training forward against its plain version: the output at the
 # serving checks' tolerances (allclose: atol = rtol), the float32 output
 # and the log-sum-exp (a float32 function of the same inputs in both
@@ -462,17 +483,18 @@ def device_ms(torch, fn, reps: int) -> float:
     return per_call / 1e3
 
 
-def graph_ms(torch, fn, reps: int) -> float:
+def graph_ms(torch, fn, reps: int, side=None) -> float:
     """Device time of `fn` per call from CUDA events around replays of
     one CUDA graph of `reps` calls: no host launch time between the
-    calls and no profiler (one eager warm-up call first)."""
-    side = torch.cuda.Stream()
+    calls and no profiler (one eager warm-up call first).  The warm-up
+    and the capture run on the stream `side` (default: a new one)."""
+    side = torch.cuda.Stream() if side is None else side
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -485,6 +507,20 @@ def graph_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (3 * reps)
+
+
+def graph_grad_ms(torch, forward, inputs, cot, reps: int) -> float:
+    """Device time of `torch.autograd.grad(out, inputs, cot)` on a
+    retained graph (out = forward()), from CUDA events around replays of
+    one CUDA graph of `reps` such calls.  The forward runs once, eagerly,
+    on the capture stream: a backward op runs on its forward's stream,
+    so the backward's kernels are captured and the forward's are not."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = forward()
+    return graph_ms(torch, lambda: torch.autograd.grad(
+        out, inputs, cot, retain_graph=True), reps, side)
 
 
 def device_events(torch, fn, reps: int) -> dict:
@@ -4281,6 +4317,15 @@ def k4_forward_check(torch, label, q, k, v, causal, seg, out, lse, o32):
     return errs
 
 
+def k4_bwd_segments(torch, B, S):
+    """The packed batch's segment ids [B, S] on the card (documents of
+    mean 512 tokens, TRAIN_SEED): K4_BWD_SHAPES' packed cases."""
+    from repro_torch.data import DataConfig, packed_batches
+    b = next(packed_batches(DataConfig(vocab=1000, seq_len=S,
+                                       global_batch=B, seed=TRAIN_SEED)))
+    return torch.as_tensor(b["segment_ids"], device="cuda")
+
+
 def k4_bwd_checks(torch, emit_kernel):
     """K4's backward (`flash_attention_bwd_cuda`, three launches a call)
     against the gradient of its plain version under autograd, at the
@@ -4300,13 +4345,19 @@ def k4_bwd_checks(torch, emit_kernel):
     output and its log-sum-exp against the plain version's in float32
     (K4_STATS_TOL).  Timed: the
     backward (ms), K4's forward with its log-sum-exp plus the backward
-    (fwd_bwd_ms), the plain version's forward + backward under autograd
-    (plain_ms, and its backward alone), and SDPA's forward + backward on
-    the same inputs (a yardstick: with the segments as a boolean mask).
-    Every time by CUDA events around back-to-back calls: a call takes
-    milliseconds, and the profiler, which keeps only part of its windows
-    late in a full run, would retake each window five times."""
-    from repro_torch.data import DataConfig, packed_batches
+    (fwd_bwd_ms), SDPA's backward alone on a retained graph (sdpa_bwd_ms,
+    the row's library time: a yardstick the port never calls) and its
+    forward + backward (sdpa_fwd_bwd_ms; with the segments as a boolean
+    mask), each by CUDA events around replays of a CUDA graph of 10
+    calls (`graph_ms`, `graph_grad_ms`: device time without the host's
+    launch time, which the tensor-core backward undercuts at the small
+    shapes; the profiler, which keeps only part of its windows late in
+    a full run, would retake each window five times); the backward also
+    by CUDA events around back-to-back eager calls (eager_ms, host time
+    included where it is longer), and the plain version's forward +
+    backward under autograd (plain_ms, and its backward alone) by CUDA
+    events; launch_ms splits the backward by launch (D, dK/dV, dQ), each
+    launch's mean over the events one profiler window kept."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_cuda)
@@ -4314,23 +4365,7 @@ def k4_bwd_checks(torch, emit_kernel):
     gen = torch.Generator(device="cuda").manual_seed(7)
     peak = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
 
-    def segments(B, S):
-        b = next(packed_batches(DataConfig(vocab=1000, seq_len=S,
-                                           global_batch=B, seed=TRAIN_SEED)))
-        return torch.as_tensor(b["segment_ids"], device="cuda")
-
-    F = 1500
-    shapes = [(8, 16, 8, 512, 512, 128, True, True,
-               "qwen3 train [8,16,512,128] causal packed")]
-    shapes += [(2, 28, 4, 512, 512, 128, True, True,
-                "qwen2vl train [2,28,512,128] G=7 causal packed")]
-    shapes += [(8, 8, 8, F, F, 64, False, False,
-                f"whisper encoder [8,8,{F},64] non-causal")]
-    shapes += [(8, 8, 8, TRAIN_ENCDEC_SEQ, TRAIN_ENCDEC_SEQ, 64, True, True,
-                f"whisper decoder [8,8,{TRAIN_ENCDEC_SEQ},64] causal "
-                "packed")]
-    shapes += [(8, 8, 8, L, F, 64, False, False,
-                f"whisper cross L={L} against F={F}") for L in (17, 333, 512)]
+    shapes = K4_BWD_SHAPES
     witness_fn = {}
     with reversed_orders(torch):
         witness_fn["flash"] = ref.flash_attention_ref
@@ -4343,7 +4378,7 @@ def k4_bwd_checks(torch, emit_kernel):
                     for _ in range(2))
             do = torch.randn((B, Lq, H, hd), generator=gen,
                              device="cuda").to(dt).transpose(1, 2)
-            seg = segments(B, Lq) if packed else None
+            seg = k4_bwd_segments(torch, B, Lq) if packed else None
             out, lse, o32 = flash_attention_cuda(q, k, v, causal, seg,
                                                  return_lse=True)
             fwd_errs = k4_forward_check(torch, f"K4 forward {case} {dt}",
@@ -4379,11 +4414,13 @@ def k4_bwd_checks(torch, emit_kernel):
                     ref.attention_mask(Lq, causal, seg, q.device))
             qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
 
+            def lib_fwd():
+                return (sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+                        if mask is not None else
+                        sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True))
+
             def lib():
-                o = (sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
-                     if mask is not None else
-                     sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True))
-                o.backward(do)
+                torch.autograd.grad(lib_fwd(), (qs, ks, vs), do)
 
             def fwd_bwd():
                 _, l_, o_ = flash_attention_cuda(q, k, v, causal, seg,
@@ -4397,12 +4434,18 @@ def k4_bwd_checks(torch, emit_kernel):
 
             def plain_bwd():
                 torch.autograd.grad(po, (pq, pk, pv), do, retain_graph=True)
-            ms = time_ms(torch, lambda: flash_attention_bwd_cuda(
-                do, q, k, v, o32, lse, causal, seg), 10)
-            fb_ms = time_ms(torch, fwd_bwd, 10)
+            def bwd():
+                flash_attention_bwd_cuda(do, q, k, v, o32, lse, causal, seg)
+            ms = graph_ms(torch, bwd, 10)
+            # each launch's mean device time (D, dK/dV, dQ)
+            split = {k.split("::", 1)[-1].split("(")[0]: t / max(n, 1) / 1e3
+                     for k, (n, t) in device_events(torch, bwd, 10).items()}
+            eager_ms = time_ms(torch, bwd, 10)
+            fb_ms = graph_ms(torch, fwd_bwd, 10)
             plain_ms = time_ms(torch, plain_fb, 3)
             plain_b = time_ms(torch, plain_bwd, 3)
-            lib_ms = time_ms(torch, lib, 10)
+            lib_ms = graph_ms(torch, lib, 10)
+            lib_b = graph_grad_ms(torch, lib_fwd, (qs, ks, vs), do, 10)
             del po
             elt = q.element_size()
             qo = B * H * Lq * hd
@@ -4420,9 +4463,11 @@ def k4_bwd_checks(torch, emit_kernel):
                    "q": [B, H, Lq, hd], "kv": [B, KV, Lk, hd],
                    "segments": (int(seg.max()) if seg is not None else None),
                    "max_abs_err": errs, "forward_max_abs_err": fwd_errs,
-                   "ms": ms, "fwd_bwd_ms": fb_ms,
+                   "ms": ms, "launch_ms": split, "eager_ms": eager_ms,
+                   "fwd_bwd_ms": fb_ms,
                    "plain_ms": plain_ms, "plain_bwd_ms": plain_b,
-                   "sdpa_fwd_bwd_ms": lib_ms, "bound_ms": bms,
+                   "sdpa_bwd_ms": lib_b, "sdpa_fwd_bwd_ms": lib_ms,
+                   "bound_ms": bms,
                    "bound_by": by, "bitwise_repeat": True}
             if wit is not None:
                 rec.update(ulps=ulps, witness_ulps=wit)
@@ -4432,7 +4477,7 @@ def k4_bwd_checks(torch, emit_kernel):
             emit_kernel("flash_attention_bwd", max_abs_err=max(errs.values()),
                         main=(dt == torch.bfloat16 and case == shapes[0][-1]),
                         ms=ms, plain_ms=plain_b, bound_ms=bms, bound_by=by,
-                        library_ms=None)
+                        library_ms=lib_b)
             del q, k, v, do, out, lse, o32, got, again, want, qs, ks, vs
     torch.cuda.empty_cache()
 
@@ -4655,6 +4700,54 @@ def grad_norm(grads) -> float:
                      for g in grads.values()) ** 0.5)
 
 
+def per_layer_fan_in(torch, specs, state, d_model) -> None:
+    """Rescales, in place, each layer-stacked `fan_in` leaf of the train
+    state's float32 masters from std scale/√L (both packages' rule: a
+    stacked leaf's fan-in is its layer count L) to scale/√n, n the
+    inputs of one layer's map: the leading dims of a leaf that writes
+    the residual (wo's H·hd, wd's d_ff), else its first dim (d_model for
+    wq, wk, wv, wg, wu).  The parity draws stay as they are; this start
+    is chip_smoke.py's own, so that the random model's softmax does not
+    saturate and its bf16 gradients mean something."""
+    from repro_torch.models.module import leaves
+    with torch.no_grad():
+        for path, spec in leaves(specs):
+            if spec.init != "fan_in" or not path[0].endswith("blocks"):
+                continue
+            n = (math.prod(spec.shape[1:-1]) if spec.shape[-1] == d_model
+                 else spec.shape[1])
+            leaf = state["params"]
+            for k in path:
+                leaf = leaf[k]
+            leaf.mul_(math.sqrt(spec.shape[0] / n))
+
+
+@contextlib.contextmanager
+def score_max(torch):
+    """Within it every call of K4's plain version appends to the yielded
+    list the largest |q·k|/√hd of its kept scores."""
+    from repro_torch.kernels import ref
+    seen, saved = [], ref.flash_attention_ref
+
+    def fn(q, k, v, causal=True, segment_ids=None):
+        with torch.no_grad():
+            g = q.shape[1] // k.shape[1]
+            s = (q.float() @ k.float().repeat_interleave(g, dim=1)
+                 .transpose(-1, -2)).abs() * q.shape[-1] ** -0.5
+            keep = ref.attention_mask(q.shape[2], causal, segment_ids,
+                                      q.device)
+            if keep is not None:
+                s = torch.where(keep, s, 0.0)
+            seen.append(float(s.max()))
+            del s
+        return saved(q, k, v, causal, segment_ids)
+    ref.flash_attention_ref = fn
+    try:
+        yield seen
+    finally:
+        ref.flash_attention_ref = saved
+
+
 def f32_step1_check(torch, label, cfg, batch, seq, witnesses):
     """Step 1 of the train run of `cfg` in float32
     (`float32_config`, `train_start`'s start and batch): the kernels'
@@ -4763,12 +4856,14 @@ def train_phase(torch, src, emit_kernel) -> dict:
     packed batches through the kernels, the plain versions and the
     witness, OLMoE-1B-7B at TRAIN_MOE_LAYERS layers with
     `moe_ep_scatter` off and on, whisper-base (6 + 6 layers, 1,500
-    frames).  A kernel run must launch K4 forward (twice a layer a step:
+    frames), from the parity draws and again with a per-layer fan-in.  A
+    kernel run must launch K4 forward (twice a layer a step:
     the remat recomputes it), K4's backward and, with MoE, K7 and its
     backward, and call no plain version; its losses and gradient norms
     within `train_gap_rule` of the plain run's (the gaps each run
-    holds: below), Qwen3's step-1 gradient within `leaf_gap_rule`;
-    then whisper-base's and OLMoE's step 1 in float32
+    holds: below), Qwen3's and the per-layer whisper's step-1 gradient
+    within `leaf_gap_rule`; the expert-parallel OLMoE's step 1 twice
+    bit for bit; then whisper-base's and OLMoE's step 1 in float32
     (`f32_step1_check`).  Returns
     the kernel runs' launches."""
     from repro_torch import configs
@@ -4836,9 +4931,11 @@ def train_phase(torch, src, emit_kernel) -> dict:
     torch.cuda.empty_cache()
 
     def bf16_runs(arch, cfg, witnesses, batch, seq, steps, want, extra="",
-                  hold=ALL_GAPS, leaves=False):
+                  hold=ALL_GAPS, leaves=False, fan_in=False, repeat=False):
         t0 = time.perf_counter()
         specs, state, batches = train_start(torch, cfg, batch, seq, steps)
+        if fan_in:
+            per_layer_fan_in(torch, specs, state, cfg.d_model)
         draw_s = time.perf_counter() - t0
         with counted_plain(torch) as calls:
             mets, counts, ms, idle, peak = train_run(
@@ -4847,6 +4944,25 @@ def train_phase(torch, src, emit_kernel) -> dict:
                 f"run called plain versions {calls}")
         require(counts == want, f"train {arch}{extra} launches {counts} != "
                 f"{want}")
+        extras = {}
+        if repeat:      # step 1's loss and gradient twice, bit for bit
+            (l1, g1), (l2, g2) = (step1_grads(torch, cfg, None, state,
+                                              batches[0]) for _ in range(2))
+            extras["bitwise_repeat"] = l1 == l2 and all(
+                torch.equal(g1[k], g2[k]) for k in g1)
+            require(extras["bitwise_repeat"], f"train {arch}{extra}: a "
+                    "second step-1 loss and gradient differ")
+            del g1, g2
+        if fan_in:      # a plain step 1's largest score, from this start
+            # and, for contrast, from the parity draws' start
+            for name, st in (("score_max", state), ("score_max_stacked",
+                                                    None)):
+                if st is None:
+                    st = train_start(torch, cfg, batch, seq, 1)[1]
+                with score_max(torch) as seen:
+                    step1_grads(torch, cfg, "ref", st, batches[0])
+                extras[name] = max(seen)
+                del st
         plain = train_run(torch, cfg, "ref", state, batches, TRAIN_OPT)
         wits = [train_run(torch, cfg, "ref", state, batches, TRAIN_OPT,
                           witness())[0] for witness in witnesses]
@@ -4879,7 +4995,7 @@ def train_phase(torch, src, emit_kernel) -> dict:
               "tokens_per_s": tokens / ms * 1e3,
               "host_idle_share": idle, "peak_bytes": peak,
               "plain_ms_per_step": plain[2], "plain_peak_bytes": plain[4],
-              "draw_s": draw_s, "nvidia_smi": CARD["nvidia_smi"]})
+              "draw_s": draw_s, **extras, "nvidia_smi": CARD["nvidia_smi"]})
         require(not bad, f"train {arch}{extra} bfloat16: "
                 + "; ".join(bad))
         add(counts)
@@ -4894,10 +5010,10 @@ def train_phase(torch, src, emit_kernel) -> dict:
     # moves by ~4 % (Qwen3's `embed`), too noisy for a 1.5x rule; Qwen3
     # holds that gradient leaf by leaf instead, and its later steps.
     # With MoE a rounding flips a few tokens' experts (the router's
-    # top-k; the scatter lowering's atomic adds differ from run to run)
-    # and whisper's saturated softmax decorrelates its gradient, so
-    # their later steps measure noise and their step-1 gradients are
-    # held in float32 below.
+    # top-k) and whisper's saturated softmax decorrelates its gradient,
+    # so their later steps measure noise and their step-1 gradients are
+    # held in float32 below; whisper's again in bfloat16 from a start
+    # with a per-layer fan-in, where its softmax does not saturate.
     later = (("loss", 0), ("loss", 1), ("grad_norm", 1))
     witnesses = train_witnesses(torch)
     cfg = configs.get_config(TRAIN_ARCH)
@@ -4918,7 +5034,7 @@ def train_phase(torch, src, emit_kernel) -> dict:
                                       "moe_gmm": 6 * L * n,
                                       "moe_gmm_bwd": 6 * L * n},
                   f" ({L} layers, moe_ep_scatter={ep})",
-                  hold=(("loss", 0),))
+                  hold=(("loss", 0),), repeat=ep)
     # ------------------------------------------------------- whisper-base
     cfg = configs.get_config(TRAIN_ENCDEC_ARCH)
     n = TRAIN_ENCDEC_STEPS
@@ -4929,6 +5045,11 @@ def train_phase(torch, src, emit_kernel) -> dict:
               TRAIN_ENCDEC_SEQ, n, {"flash_attention": 2 * n_fwd * n,
                                     "flash_attention_bwd": n_fwd * n},
               hold=(("loss", 0),))
+    bf16_runs(TRAIN_ENCDEC_ARCH, cfg, witnesses, TRAIN_BF16_BATCH,
+              TRAIN_ENCDEC_SEQ, n, {"flash_attention": 2 * n_fwd * n,
+                                    "flash_attention_bwd": n_fwd * n},
+              " (per-layer fan-in)", hold=(("loss", 0),), leaves=True,
+              fan_in=True)
     # ---------------------------- float32 step 1, loss, norm and leaves
     # whisper-base's scores reach the hundreds (the stacked weights'
     # fan-in is the layer count, and it has no qk-norm)

@@ -15,7 +15,9 @@ packed batch's segment ids and returns the rows' log-sum-exp.
 backward kernel: it differentiates plain attention), three launches a
 call: D = rowsum(dO ∘ O), then dK and dV a CTA per (batch row, KV head,
 64 keys) summing over the group's query heads, then dQ a CTA per (batch
-row, head, 64 queries); its plain version is the gradient of
+row, head, 64 queries); bfloat16 at hd 64 or 128 on the tensor cores
+(`wgmma`, P and dS in three bfloat16 parts), everything else on CUDA
+cores, as the forward picks.  Its plain version is the gradient of
 `flash_attention_ref` under autograd.  `FlashAttentionFn` joins the two
 under autograd.  Launches are counted in `.launches` of each wrapper.
 """

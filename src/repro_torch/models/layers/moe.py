@@ -65,14 +65,25 @@ def _capacity(tokens_per_group: int, cfg) -> int:
     return max(4, min(cap, tokens_per_group))
 
 
-def _segsum_to_tokens(src, slot_tok, w_slot, Tg: int):
-    """sum_e,c w_slot[g,e,c] * src[g,e,c,:] into token rows [G, Tg, D]
-    (a scatter-add in slot order; empty slots land on a dropped row)."""
-    G, E, C, D = src.shape
-    flat = (src * w_slot[..., None].to(src.dtype)).reshape(G, E * C, D)
-    idx = slot_tok.clamp_max(Tg).reshape(G, E * C, 1).expand(G, E * C, D)
-    out = torch.zeros((G, Tg + 1, D), dtype=src.dtype, device=src.device)
-    return out.scatter_add_(1, idx, flat)[:, :Tg]
+def _segsum_to_tokens(src, e_idx, p_idx, keep, w=None):
+    """sum_e,c w_slot[g,e,c] * src[g,e,c,:] into token rows [G, Tg, D]:
+    the reference's scatter-add into token space, taken from the token
+    side.  Token t's kept assignment k (keep [G, Tg, K]) sits at slot
+    (e_idx, p_idx) with weight w[g, t, k] (float32; None: 1).  Each
+    token adds its kept slots one at a time in src's dtype, in the order
+    the scatter-add visits them (slot order: ascending expert).  No
+    atomics, so a call repeats bit for bit on the card."""
+    K = e_idx.shape[2]
+    rows = src[_groups(src)[:, None, None], e_idx, p_idx]    # [G, Tg, K, D]
+    if w is not None:
+        rows = rows * w[..., None].to(src.dtype)
+    rows = torch.where(keep[..., None], rows, 0)
+    order = torch.sort(e_idx, dim=-1, stable=True).indices
+    rows = torch.take_along_dim(rows, order[..., None], dim=2)
+    out = rows[:, :, 0]
+    for k in range(1, K):
+        out = out + rows[:, :, k]
+    return out
 
 
 def _groups(t):
@@ -99,7 +110,7 @@ class _Dispatch(torch.autograd.Function):
     def backward(ctx, d_buf):
         slot_tok, valid, e_idx, p_idx, keep = ctx.saved_tensors
         if ctx.ep:
-            dx = _segsum_to_tokens(d_buf, slot_tok, valid, ctx.Tg)
+            dx = _segsum_to_tokens(d_buf, e_idx, p_idx, keep)
         else:
             d_buf = d_buf * valid[..., None].to(d_buf.dtype)
             dslots = d_buf[_groups(d_buf)[:, None, None], e_idx, p_idx]
@@ -109,30 +120,31 @@ class _Dispatch(torch.autograd.Function):
 
 class _Combine(torch.autograd.Function):
     """The expert outputs [G, E, C, D] and the gate weights w [G, Tg, K]
-    -> y [G, Tg, D] = Σ_k w[g,t,k]·out[g, e_idx, p_idx]; with `ep` a
-    scatter-add of the weighted slots into token space (the JAX layer's
-    `_combine_ep`).  Backward: d_out the tokens' gradients gathered into
-    the slots times their weight; d_w each assignment's dot of dy with
-    its slot (with `ep` taken in slot space and scattered to (t, k))."""
+    -> y [G, Tg, D] = Σ_k w[g,t,k]·out[g, e_idx, p_idx]; with `ep` the
+    JAX layer's `_combine_ep` (a scatter-add of the weighted slots into
+    token space, here `_segsum_to_tokens`).  Backward: d_out the tokens'
+    gradients gathered into the slots times their weight; d_w each
+    assignment's dot of dy with its slot (with `ep` taken in slot space,
+    as the reference does, and gathered back at (e_idx, p_idx) where
+    the reference scatters it: each kept (t, k) owns one slot)."""
 
     @staticmethod
-    def forward(ctx, out, w, slot_tok, slot_k, valid, e_idx, p_idx, ep):
+    def forward(ctx, out, w, slot_tok, slot_k, valid, e_idx, p_idx, keep,
+                ep):
         gi = _groups(out)[:, None, None]
-        Tg = w.shape[1]
-        ctx.save_for_backward(out, w, slot_tok, slot_k, valid, e_idx, p_idx)
+        ctx.save_for_backward(out, w, slot_tok, slot_k, valid, e_idx, p_idx,
+                              keep)
         ctx.ep = ep
         if ep:
-            w_slot = w[gi, slot_tok.clamp_max(Tg - 1), slot_k].float() \
-                * valid
-            return _segsum_to_tokens(out, slot_tok, w_slot, Tg)
+            return _segsum_to_tokens(out, e_idx, p_idx, keep, w.float())
         slots = out[gi, e_idx, p_idx]                      # [G, Tg, K, D]
         return torch.einsum("gtk,gtkd->gtd", w.to(out.dtype), slots)
 
     @staticmethod
     def backward(ctx, dy):
-        out, w, slot_tok, slot_k, valid, e_idx, p_idx = ctx.saved_tensors
-        G, E, C, D = out.shape
-        Tg, K = w.shape[1], w.shape[2]
+        out, w, slot_tok, slot_k, valid, e_idx, p_idx, keep = \
+            ctx.saved_tensors
+        Tg = w.shape[1]
         gi = _groups(out)[:, None, None]
         tok = slot_tok.clamp_max(Tg - 1)
         dy_slots = dy[gi, tok]                             # [G, E, C, D]
@@ -140,18 +152,12 @@ class _Combine(torch.autograd.Function):
         d_out = dy_slots * (w_slots.float() * valid)[..., None].to(dy.dtype)
         if ctx.ep:
             dw_slot = (dy_slots * out).sum(-1).float() * valid
-            d_w = torch.zeros((G, Tg + 1, K), dtype=torch.float32,
-                              device=dy.device)
-            d_w.index_put_((gi.expand(G, E, C).reshape(-1),
-                            slot_tok.clamp_max(Tg).reshape(-1),
-                            slot_k.reshape(-1)), dw_slot.reshape(-1),
-                           accumulate=True)
-            d_w = d_w[:, :Tg]
+            d_w = torch.where(keep, dw_slot[gi, e_idx, p_idx], 0.0)
         else:
             slots = out[gi, e_idx, p_idx]
             d_w = torch.einsum("gtd,gtkd->gtk", dy, slots)
         return (d_out.to(out.dtype), d_w.to(w.dtype), None, None, None,
-                None, None, None)
+                None, None, None, None)
 
 
 def moe(p, state: dict, x: torch.Tensor, cfg, impl: Optional[str] = None):
@@ -228,7 +234,8 @@ def moe(p, state: dict, x: torch.Tensor, cfg, impl: Optional[str] = None):
                       active=active)                       # [E, G·C, D]
     out = out.reshape(E, G, C, D).transpose(0, 1)          # [G, E, C, D]
     w = (gate * keep).to(cd)
-    y = _Combine.apply(out, w, slot_tok, slot_k, valid, top_idx, p_idx, ep)
+    y = _Combine.apply(out, w, slot_tok, slot_k, valid, top_idx, p_idx, keep,
+                       ep)
 
     new_state = {"load_ema": 0.9 * state["load_ema"] + 0.1 * counts}
     metrics = {"moe_imbalance": moe_bridge.load_imbalance(counts),

@@ -69,6 +69,7 @@ from repro_torch.models import build_model, module
 from repro_torch.models.layers import moe as moel
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 from test_torch_serving import _chip_smoke, _record, golden_requests
+from test_torch_train_grads import _run_pair
 
 torch.set_num_threads(1)
 
@@ -335,6 +336,28 @@ def test_moe_layer_matches_reference(case):
     want = ((sel[:, K - 1] - sel[:, K])
             / np.maximum(np.abs(sel[:, K - 1]), 1.0)).min()
     assert abs(float(met["router_gap"]) - want) <= 1e-5
+
+
+def test_ep_lowering_adds_without_atomics_and_matches_reference(
+        monkeypatch):
+    """The expert-parallel lowering (`moe_ep_scatter`) of reduced OLMoE's
+    `LM.loss`, forward and backward, with `Tensor.scatter_add_` and an
+    accumulating `Tensor.index_put_` made to raise: its combine and its
+    dispatch's backward sum into token space without them (on the card
+    both add with atomics, in an order that changes from run to run),
+    and its loss and gradients still match the JAX package's
+    `_combine_ep` / `_dispatch_ep` at the ep parity tolerance."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the ep lowering reached an atomic scatter")
+    index_put = torch.Tensor.index_put_
+
+    def index_put_refusing_sums(self, indices, values, accumulate=False):
+        if accumulate:
+            refuse()
+        return index_put(self, indices, values, accumulate)
+    monkeypatch.setattr(torch.Tensor, "scatter_add_", refuse)
+    monkeypatch.setattr(torch.Tensor, "index_put_", index_put_refusing_sums)
+    _run_pair(ARCH, 8, moe_ep_scatter=True, n_layers=1)
 
 
 def test_topk_ties_take_the_lower_expert():

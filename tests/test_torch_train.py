@@ -64,7 +64,7 @@ from repro_torch.convert import train_state_from_numpy, train_state_to_numpy
 from repro_torch.launch.train import main as train_main
 from repro_torch.models import build_model, module
 from repro_torch.train import (TrainConfig, build_train_step,
-                               init_train_state)
+                               init_train_state, loss_and_grads)
 
 torch.set_num_threads(1)
 
@@ -400,6 +400,47 @@ def test_golden_is_well_formed_and_matches_chip_smoke():
 
 
 # -------------------------------------------- chip_smoke.py's train rules
+def test_chip_smoke_per_layer_fan_in_unsaturates_whisper():
+    """`chip_smoke.per_layer_fan_in` rescales reduced whisper-base's
+    layer-stacked `fan_in` leaves (both packages: std 1/√layers) to
+    1/√n, n one layer's inputs (d_model; H·hd for wo, d_ff for wd), and
+    leaves every other leaf as drawn; `score_max` then reads the plain
+    forward's largest |q·k|/√hd far below the parity draws' (the
+    softmax no longer saturates)."""
+    smoke = _chip_smoke()
+    cfg = configs.get_reduced("whisper-base", n_layers=2, n_enc_layers=2)
+    specs = build_model(cfg, device="meta").param_specs()
+    batch = {k: torch.as_tensor(v) for k, v in next(data.packed_batches(
+        data.DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2,
+                        seed=0, mean_doc_len=8))).items()}
+    batch["enc_feats"] = torch.as_tensor(0.02 * np.random.RandomState(
+        0).standard_normal((2, cfg.n_enc_frames, cfg.d_model)),
+        dtype=torch.float32)
+    scores = []
+    for rescale in (False, True):
+        params = module.draw(specs, torch.Generator().manual_seed(0),
+                             "cpu", lambda path, spec: torch.float32)
+        before = {path: t.clone() for path, t in module.leaves(params)}
+        st = init_train_state(params, {}, TrainConfig())
+        if rescale:
+            smoke.per_layer_fan_in(torch, specs, st, cfg.d_model)
+        for path, spec in module.leaves(specs):
+            got, ratio = st["params"], 1.0
+            for k in path:
+                got = got[k]
+            if rescale and spec.init == "fan_in" \
+                    and path[0].endswith("blocks"):
+                n = (cfg.d_ff if path[-1] == "wd" else cfg.d_model)
+                ratio = (spec.shape[0] / n) ** 0.5
+            torch.testing.assert_close(got, before[path] * ratio)
+        with smoke.score_max(torch) as seen:
+            loss_and_grads(build_model(cfg, device="meta", impl="ref"),
+                           st["params"], {}, batch)
+        assert len(seen) == 6          # 2 encoder, 2 self, 2 cross
+        scores.append(max(seen))
+    assert scores[0] > 100.0 and scores[1] < 10.0, scores
+
+
 def test_chip_smoke_train_gap_rule_holds_each_gap():
     """`train_gap_rule` holds the loss and the gradient norm, step 1 and
     the later steps, each against its own largest witness gap (exact

@@ -3,12 +3,14 @@
 
     python3 tools/kernel_ab.py [--variant SOURCE=path.cu ...]
                                [--split-max 32,64,128,256]
-                               [--only flash_attention,decode_attention,
+                               [--only flash_attention,flash_attention_bwd,
+                                       decode_attention,
                                        moe_gmm,edge_rounds,
                                        edge_rounds_bucketed,simplex_project,
                                        ssd_scan,main_path]
 
-Builds the port's `flash_attention` (K4), `decode_attention` (K5),
+Builds the port's `flash_attention` (K4), `flash_attention_bwd` (K4's
+backward), `decode_attention` (K5),
 `moe_gmm` (K7), `edge_rounds` (K1, K2), `simplex_project` (K3) and
 `ssd_scan` (K6) from `src/repro_torch/kernels/csrc`, and each variant
 source (a `.cu` with the same C interface, named by the source it
@@ -27,6 +29,10 @@ in, in the order source, variants, variants reversed, source:
   length 1024 and every length 1, and B = 1 at 1024, plus float32
   ragged, beside scaled_dot_product_attention; with --split-max also
   with the wrapper's split plan capped at each value;
+* K4's backward: bfloat16 at `chip_smoke.K4_BWD_SHAPES` (Qwen3-0.6B's
+  and Qwen2-VL-7B's training shapes, whisper-base's encoder, packed
+  decoder and cross attention), each variant first held to 1.5x the
+  witness's bfloat16 ulps, beside SDPA's backward alone;
 * K7: OLMoE's expert products [64, C, 2048] @ [64, 2048, 1024] and
   [64, C, 1024] @ [64, 1024, 2048] at C in {4, 52, 80} in bf16, at C in
   {4, 80} in float32, and the decode's C = 4 with 40 of 64 experts
@@ -137,9 +143,9 @@ class SerialSSD:
                                         fin, B, L, H, P, N, stream)
 
 
-KERNELS = ("flash_attention", "decode_attention", "moe_gmm",
-           "edge_rounds", "edge_rounds_bucketed", "simplex_project",
-           "ssd_scan", "main_path")
+KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention",
+           "moe_gmm", "edge_rounds", "edge_rounds_bucketed",
+           "simplex_project", "ssd_scan", "main_path")
 PATH_SOURCES = ("edge_rounds", "simplex_project")
 SOURCE_OF = {"edge_rounds_bucketed": "edge_rounds"}
 PATH_ROUNDS = 10
@@ -200,6 +206,8 @@ def main() -> int:
         attention_ab(torch, cs, ref, dmod, decode_attention_cuda,
                      flash_attention_cuda, sdpa, randn, ab, only,
                      args.split_max)
+    if "flash_attention_bwd" in only:
+        bwd_ab(torch, cs, ref, flash_attention_cuda, sdpa, randn, ab)
     if "moe_gmm" in only:
         gmm_ab(torch, cs, ref, ab)
     if "edge_rounds" in only:
@@ -262,6 +270,50 @@ def attention_ab(torch, cs, ref, dmod, decode_attention_cuda,
         print(json.dumps({"kernel": "decode_attention", "model": model,
                           "dtype": dtype, "case": label, "ms": times,
                           "sdpa_ms": lib}), flush=True)
+
+
+def bwd_ab(torch, cs, ref, flash_attention_cuda, sdpa, randn, ab):
+    """K4's backward in bfloat16 at `chip_smoke.K4_BWD_SHAPES`, each
+    source and variant held first to 1.5x the witness's bfloat16 ulps
+    (`chip_smoke.witness_check`'s rule), beside SDPA's backward alone on
+    a retained graph (with the segments as a boolean mask)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    with cs.reversed_orders(torch):
+        witness = ref.flash_attention_ref
+    for B, H, KV, Lq, Lk, hd, causal, packed, case in cs.K4_BWD_SHAPES:
+        dt = torch.bfloat16
+        q, do = (randn(B, Lq, H, hd, dt=dt).transpose(1, 2)
+                 for _ in range(2))
+        k, v = (randn(B, Lk, KV, hd, dt=dt).transpose(1, 2)
+                for _ in range(2))
+        seg = cs.k4_bwd_segments(torch, B, Lq) if packed else None
+        _, lse, o32 = flash_attention_cuda(q, k, v, causal, seg,
+                                           return_lse=True)
+        _, want = cs.grads_of(torch, lambda a, b, c: ref.flash_attention_ref(
+            a, b, c, causal, seg), (q, k, v), do)
+        _, wit = cs.grads_of(torch, lambda a, b, c: witness(
+            a, b, c, causal, seg), (q, k, v), do)
+
+        def check(got):
+            ulps = [cs.bf16_ulps(torch, g, w) for g, w in zip(got, want)]
+            lim = [1.5 * max(cs.bf16_ulps(torch, x, w), 1.0)
+                   for x, w in zip(wit, want)]
+            return ulps, all(u <= m for u, m in zip(ulps, lim))
+        times = ab("flash_attention_bwd", lambda: flash_attention_bwd_cuda(
+            do, q, k, v, o32, lse, causal, seg), None, None, check)
+        mask = (None if seg is None else
+                ref.attention_mask(Lq, causal, seg, q.device))
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        so = (sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+              if mask is not None else
+              sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True))
+        lib = cs.device_ms(torch, lambda: torch.autograd.grad(
+            so, (qs, ks, vs), do, retain_graph=True), 10)
+        print(json.dumps({"kernel": "flash_attention_bwd", "case": case,
+                          "q": [B, H, Lq, hd], "kv": [B, KV, Lk, hd],
+                          "ms": times, "sdpa_bwd_ms": lib}), flush=True)
+        del so, q, k, v, do, want, wit
+    torch.cuda.empty_cache()
 
 
 def gmm_ab(torch, cs, ref, ab):

@@ -613,6 +613,9 @@ def main() -> int:
           "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "ptxas": {name: ptxas_summary(out)
                     for name, out in reports.items()}})
+    if "moe_gmm_bwd" in reports:     # K7's backward: no spills, by design
+        spills = ptxas_summary(reports["moe_gmm_bwd"])["spills"]
+        require(not spills, f"moe_gmm_bwd spills: {spills}")
 
     # -------------------------------------------------------- scenarios
     nets, nbrs, bks = {}, {}, {}
@@ -1030,14 +1033,15 @@ def main() -> int:
                             "src/repro/kernels/ssd_scan.py:80"),
                "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
                            "src/repro/kernels/moe_gmm.py:35"),
-               # the backward of K4 (its own source) and of K7 (two more
-               # launches of K7's kernel): the JAX package differentiates
-               # the functions the two TPU kernels compute
+               # the backward of K4 and of K7 (each its own source): the
+               # JAX package differentiates the functions the two TPU
+               # kernels compute
                "flash_attention_bwd": (
                    "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                    "src/repro/kernels/flash_attention.py:68"),
-               "moe_gmm_bwd": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
-                               "src/repro/kernels/moe_gmm.py:35")}
+               "moe_gmm_bwd": (
+                   "src/repro_torch/kernels/csrc/moe_gmm_bwd.cu",
+                   "src/repro/kernels/moe_gmm.py:35")}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k][0],
          "replaces": sources[k][1], "launches": path_launches[k],
@@ -4482,30 +4486,41 @@ def k4_bwd_checks(torch, emit_kernel):
     torch.cuda.empty_cache()
 
 
+# K7's backward at OLMoE's expert products: (C, D, F, active experts of
+# 64).  D 2048 / F 1024 are the wg and wu products, D 1024 / F 2048 the
+# wd product; C = 80 is a 512-token row's capacity, C = 640 the train
+# step's 8 rows of 512 tokens
+K7_BWD_SHAPES = ((80, 2048, 1024, 40), (640, 2048, 1024, 64),
+                 (80, 1024, 2048, 40), (640, 1024, 2048, 64))
+
+
 def k7_bwd_checks(torch, emit_kernel):
-    """K7's backward (`moe_gmm_bwd_cuda`: dx = K7(dy, wᵀ) and dw = K7(xᵀ,
-    dy), the same kernel twice with `active`) at OLMoE's training
-    products, x [64, C, 2048] @ w [64, 2048, 1024] with C = 80 (a 512-token
-    row's capacity) and C = 640 (8 rows of 512 tokens: the train step's
-    batch), 40 of 64 experts active at C = 80, against the gradient of the
-    plain version: float32 to 1e-5 of Σ|·| per output (the sums of two
-    products over C or F), bfloat16 no further than 1.5x the witness (D
-    reversed in the plain forward).  Timed beside two torch.bmm calls
-    (dy @ wᵀ, xᵀ @ dy: a yardstick, not one call); the bound counts the
-    function's bytes (dy, x, w read, dx, dw written) without the two
-    transposes' (E·C·D + E·D·F elements read and written once more).
-    Timed by CUDA events, as `k4_bwd_checks`."""
+    """K7's backward (`moe_gmm_bwd_cuda`) at `K7_BWD_SHAPES`, x [64, C, D]
+    @ w [64, D, F], against the gradient of the plain version: float32
+    (two launches of the forward kernel on transposed copies) to 1e-5 of
+    Σ|·| per output (the sums of two products over C or F), bfloat16
+    (one launch of the backward kernel, `csrc/moe_gmm_bwd.cu`) no further
+    than 1.5x the witness (D reversed in the plain forward), the inactive
+    experts' dx and dw zero, one launch a call.  In bfloat16 also: two
+    calls equal bit for bit, and a dx-only and a dw-only call equal to
+    the full call's dx and dw, at both C of the wg shape.  Timed beside
+    two torch.bmm calls (dy @ wᵀ, xᵀ @ dy: a yardstick, not one call;
+    `bmm_ratio`); the bound counts the function's bytes (dy, x, w read,
+    dx, dw written, for the active experts) and operations, the
+    inactive experts' zeros (`zero_bytes`) beside it, and
+    `transpose_bytes` the copies the float32 route makes (none in
+    bfloat16).  Timed by CUDA events, as `k4_bwd_checks`."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.moe_gmm import moe_gmm_bwd_cuda
     gen = torch.Generator(device="cuda").manual_seed(8)
     peak = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
+    E = 64
 
     def rev(x, w, active):
         out = torch.bmm(x.float().flip(-1), w.float().flip(1))
         return torch.where(active.bool()[:, None, None], out, 0.0).to(x.dtype)
     for dt in (torch.float32, torch.bfloat16):
-        for E, C, D, F, n_active in ((64, 80, 2048, 1024, 40),
-                                     (64, 640, 2048, 1024, 64)):
+        for C, D, F, n_active in K7_BWD_SHAPES:
             x = torch.randn((E, C, D), generator=gen, device="cuda").to(dt)
             w = (torch.randn((E, D, F), generator=gen, device="cuda")
                  * D ** -0.5).to(dt)
@@ -4514,12 +4529,15 @@ def k7_bwd_checks(torch, emit_kernel):
             active[torch.randperm(E, generator=gen, device="cuda")[
                 :n_active]] = True
             x = torch.where(active[:, None, None], x, 0).to(dt)
+            n0 = moe_gmm_bwd_cuda.launches
             dx, dw = moe_gmm_bwd_cuda(dy, x, w, active)
             torch.cuda.synchronize()
+            n_launch = moe_gmm_bwd_cuda.launches - n0
             _, (px, pw) = grads_of(torch, lambda a, b: ref.moe_gmm_ref(
                 a, b, active), (x, w), dy)
             label = f"K7 backward [{E},{C},{D}]@[{E},{D},{F}] " \
                     f"{n_active} active {dt}"
+            extra = {}
             if dt == torch.float32:
                 _, (ax, aw) = grads_of(torch, lambda a, b: ref.moe_gmm_ref(
                     a, b, active), (x.abs(), w.abs()), dy.abs())
@@ -4531,7 +4549,9 @@ def k7_bwd_checks(torch, emit_kernel):
                     require(bool((d <= 1e-5 * mag).all()),
                             f"{label} {name}: max abs err {errs[name]} "
                             "beyond 1e-5 of Σ|·|")
-                wit = None
+                require(n_launch == 2, f"{label}: {n_launch} launches, "
+                        "not 2")
+                transpose = 2 * (E * C * D + E * D * F) * x.element_size()
             else:
                 _, (wx, ww) = grads_of(torch, lambda a, b: rev(a, b, active),
                                        (x, w), dy)
@@ -4540,6 +4560,28 @@ def k7_bwd_checks(torch, emit_kernel):
                                           ("dw", dw, pw, ww)):
                     ulps[name], wit[name], errs[name] = witness_check(
                         torch, f"{label} {name}", g, want, wg)
+                require(n_launch == 1, f"{label}: {n_launch} launches, "
+                        "not 1")
+                require(not dx[~active].any() and not dw[~active].any(),
+                        f"{label}: an inactive expert's dx or dw is not zero")
+                extra = {"ulps": ulps, "witness_ulps": wit}
+                if D == 2048:
+                    dx2, dw2 = moe_gmm_bwd_cuda(dy, x, w, active)
+                    dxo, none = moe_gmm_bwd_cuda(dy, x, w, active, True,
+                                                 False)
+                    none2, dwo = moe_gmm_bwd_cuda(dy, x, w, active, False,
+                                                  True)
+                    torch.cuda.synchronize()
+                    require(torch.equal(dx2, dx) and torch.equal(dw2, dw),
+                            f"{label}: two calls differ")
+                    require(none is None and none2 is None
+                            and torch.equal(dxo, dx)
+                            and torch.equal(dwo, dw),
+                            f"{label}: a dx-only or dw-only call differs "
+                            "from the full call")
+                    extra.update(bitwise_twice=True, dx_only_dw_only=True)
+                    del dx2, dw2, dxo, dwo
+                transpose = 0
             ms = time_ms(torch, lambda: moe_gmm_bwd_cuda(dy, x, w, active),
                          10)
             plain = time_ms(torch, lambda: grads_of(
@@ -4549,23 +4591,22 @@ def k7_bwd_checks(torch, emit_kernel):
                                              torch.bmm(x.transpose(1, 2),
                                                        dy)), 10)
             elt = x.element_size()
-            frac = n_active / E
-            n_bytes = (E * C * F + 2 * (E * C * D + E * D * F)) * elt * frac
+            n_bytes = (C * F + 2 * (C * D + D * F)) * elt * n_active
             n_ops = 4.0 * n_active * C * D * F
             bms, by = bound_ms(n_bytes, n_ops, peak[dt])
-            rec = {"phase": "train", "kernel": "moe_gmm_bwd", "case": label,
-                   "dtype": str(dt), "x": [E, C, D], "w": [E, D, F],
-                   "active": n_active, "max_abs_err": errs, "ms": ms,
-                   "plain_ms": plain, "two_bmm_ms": lib_ms,
-                   "transpose_bytes": 2 * (E * C * D + E * D * F) * elt,
-                   "bound_ms": bms, "bound_by": by}
-            if wit is not None:
-                rec.update(ulps=ulps, witness_ulps=wit)
-            emit(rec)
+            emit({"phase": "train", "kernel": "moe_gmm_bwd", "case": label,
+                  "dtype": str(dt), "x": [E, C, D], "w": [E, D, F],
+                  "active": n_active, "launches_a_call": n_launch,
+                  "max_abs_err": errs, "ms": ms, "plain_ms": plain,
+                  "two_bmm_ms": lib_ms, "bmm_ratio": ms / lib_ms,
+                  "transpose_bytes": transpose,
+                  "zero_bytes": (E - n_active) * (C * D + D * F) * elt,
+                  "bound_ms": bms, "bound_by": by, **extra,
+                  "nvidia_smi": CARD["nvidia_smi"]})
             emit_kernel("moe_gmm_bwd", max_abs_err=max(errs.values()),
-                        main=(dt == torch.bfloat16 and C == 640), ms=ms,
-                        plain_ms=plain, bound_ms=bms, bound_by=by,
-                        library_ms=None)
+                        main=(dt == torch.bfloat16 and C == 640
+                              and D == 2048), ms=ms, plain_ms=plain,
+                        bound_ms=bms, bound_by=by, library_ms=None)
             del x, w, dy, dx, dw, px, pw
     torch.cuda.empty_cache()
 
@@ -5032,7 +5073,7 @@ def train_phase(torch, src, emit_kernel) -> dict:
                   TRAIN_BF16_SEQ, n, {"flash_attention": 2 * L * n,
                                       "flash_attention_bwd": L * n,
                                       "moe_gmm": 6 * L * n,
-                                      "moe_gmm_bwd": 6 * L * n},
+                                      "moe_gmm_bwd": 3 * L * n},
                   f" ({L} layers, moe_ep_scatter={ep})",
                   hold=(("loss", 0),), repeat=ep)
     # ------------------------------------------------------- whisper-base

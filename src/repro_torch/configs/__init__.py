@@ -1,8 +1,10 @@
 """Architecture registry: --arch <id> -> ModelConfig.
 
 Every architecture of the JAX package is listed and its configuration
-copies over verbatim; `models.build_model` says which families the port
-runs so far (the dense attention-only LM).
+copies over verbatim; `models.build_model` builds every family (the
+dense and MoE attention LMs, Mamba2, the Jamba hybrid, the VLM with
+M-RoPE and the encoder-decoder), and `launch.train` trains all but
+Mamba2 and Jamba.
 """
 from __future__ import annotations
 

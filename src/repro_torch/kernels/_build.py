@@ -19,7 +19,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("edge_rounds", "simplex_project", "flash_attention",
-           "flash_attention_bwd", "decode_attention", "ssd_scan", "moe_gmm")
+           "flash_attention_bwd", "decode_attention", "ssd_scan", "moe_gmm",
+           "moe_gmm_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -113,6 +114,9 @@ _SIGNATURES = {
     "moe_gmm": {
         "moe_gmm_launch": [_INT, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
                            _INT, _INT, _PTR],
+    },
+    "moe_gmm_bwd": {
+        "moe_gmm_bwd_launch": [_PTR] * 6 + [_INT] * 5 + [_PTR],
     },
 }
 

@@ -17,11 +17,15 @@ that hold a row: the kernel reads it on the device, zeroes the others'
 outputs and reads none of their weight.  Launches are counted in
 `.launches`.
 
-Under autograd (`MoeGmmFn`) the backward is two more launches of the
-same kernel with the same `active` (`moe_gmm_bwd_cuda`): dx = K7(dy,
-wᵀ) and dw = K7(xᵀ, dy), xᵀ [E, D, C] and wᵀ [E, F, D] made contiguous
-first (the transposes move E·C·D + E·D·F elements once, each read and
-written); no library matmul.
+Under autograd (`MoeGmmFn`) the backward is one launch of its own kernel
+(`moe_gmm_bwd_cuda`, `csrc/moe_gmm_bwd.cu`) for bfloat16 with D and F
+multiples of 8 and 16-byte aligned operands: dx = dy·wᵀ and dw = xᵀ·dy
+on the tensor cores, dy, x and w read where they lie, the (dx, dw) tiles
+of the active experts dealt over one persistent grid
+(`bwd_tile_schedule`).  Float32 (the parity checks) and unaligned
+bfloat16 take two launches of the forward kernel instead, dx = K7(dy,
+wᵀ) and dw = K7(xᵀ, dy), on contiguous copies of xᵀ [E, D, C] and wᵀ
+[E, F, D]; no library matmul.
 """
 from __future__ import annotations
 
@@ -29,11 +33,12 @@ import torch
 
 from . import _build
 
-__all__ = ["MoeGmmFn", "moe_gmm_bwd_cuda", "moe_gmm_cuda", "tile_schedule",
-           "tile_width"]
+__all__ = ["MoeGmmFn", "bwd_tile_schedule", "moe_gmm_bwd_cuda",
+           "moe_gmm_cuda", "tile_schedule", "tile_width"]
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_M = 128                  # rows of one tile (csrc kMaxM)
+BWD_TILE = (128, 256)        # rows, columns of a backward tile (kBM, kBN)
 
 
 def tile_width(C: int, tensor_cores: bool) -> int:
@@ -55,6 +60,28 @@ def tile_schedule(E, C, F, active, ctas, bn=64):
     n_mb, n_nb = -(-C // MAX_M), -(-F // bn)
     tiles = [(e, mb * MAX_M, nb * bn) for e in experts
              for mb in range(n_mb) for nb in range(n_nb)]
+    return [tiles[b::ctas] for b in range(ctas)]
+
+
+def bwd_tile_schedule(E, C, D, F, active, ctas, need_dx=True,
+                      need_dw=True):
+    """The backward kernel's schedule: for each CTA of a persistent grid
+    of `ctas`, the ("dx" | "dw", expert, first row, first column) tiles
+    of 128 x 256 outputs it sums, in order.  The dx tiles of the active
+    experts (all when `active` is None; expert-major, then 128-row block
+    of C, then 256-column block of D), then their dw tiles (128-row block
+    of D, then 256-column block of F); `need_dx` / `need_dw` leave one
+    kind out.  CTA b takes tiles b, b + G, b + 2G, ..., so no two CTAs
+    differ by more than one tile."""
+    experts = [e for e in range(E) if active is None or active[e]]
+    bm, bn = BWD_TILE
+    tiles = []
+    if need_dx:
+        tiles += [("dx", e, r, n) for e in experts for r in range(0, C, bm)
+                  for n in range(0, D, bn)]
+    if need_dw:
+        tiles += [("dw", e, r, n) for e in experts for r in range(0, D, bm)
+                  for n in range(0, F, bn)]
     return [tiles[b::ctas] for b in range(ctas)]
 
 
@@ -116,23 +143,61 @@ def moe_gmm_cuda(x, w, active=None):
 moe_gmm_cuda.launches = 0
 
 
+def _bwd_tensor_cores(dy, x, w):
+    """Whether the backward kernel takes these operands: bfloat16, D and
+    F multiples of 8, every pointer 16-byte aligned."""
+    return (x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0
+            and w.shape[-1] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (dy, x, w)))
+
+
 def moe_gmm_bwd_cuda(dy, x, w, active=None, need_dx=True, need_dw=True):
     """The gradient of `moe_gmm_cuda(x, w, active)` given the output's
     gradient dy [E, C, F] -> (dx [E, C, D], dw [E, D, F]) (None where not
-    needed): dx = K7(dy, wᵀ), dw = K7(xᵀ, dy), both with `active`, in
-    x's dtype, float32 sums.  Each of the two launches is counted."""
+    needed), in x's dtype, float32 sums; the inactive experts' dx and dw
+    are zero.  bfloat16 with D and F multiples of 8 and 16-byte aligned
+    operands: one launch of the backward kernel, counted once, on dy, x
+    and w as they lie (contiguous, else ValueError).  Otherwise two
+    launches of the forward kernel, dx = K7(dy, wᵀ) and dw = K7(xᵀ, dy),
+    each counted."""
     active = _check(x, w, active)
     E, C, D = x.shape
-    if dy.shape != (E, C, w.shape[-1]) or dy.dtype != x.dtype:
+    F = w.shape[-1]
+    if (dy.shape != (E, C, F) or dy.dtype != x.dtype
+            or dy.device != x.device):
         raise ValueError(f"moe_gmm backward: dy {tuple(dy.shape)} "
-                         f"{dy.dtype} does not match the output")
-    dx = dw = None
-    if need_dx:
-        dx, launched = _launch(dy, w.transpose(1, 2), active)
-        moe_gmm_bwd_cuda.launches += launched
-    if need_dw:
-        dw, launched = _launch(x.transpose(1, 2), dy, active)
-        moe_gmm_bwd_cuda.launches += launched
+                         f"{dy.dtype} on {dy.device} does not match the "
+                         "output")
+    if not _bwd_tensor_cores(dy, x, w):
+        dx = dw = None
+        if need_dx:
+            dx, launched = _launch(dy, w.transpose(1, 2), active)
+            moe_gmm_bwd_cuda.launches += launched
+        if need_dw:
+            dw, launched = _launch(x.transpose(1, 2), dy, active)
+            moe_gmm_bwd_cuda.launches += launched
+        return dx, dw
+    for name, t in (("dy", dy), ("x", x), ("w", w)):
+        if not t.is_contiguous():
+            raise ValueError(f"moe_gmm backward: {name} must be contiguous")
+    dx = torch.empty_like(x) if need_dx else None
+    dw = torch.empty_like(w) if need_dw else None
+    if dx is None and dw is None:
+        return dx, dw
+    if min(E, C, D, F) == 0:          # nothing to sum: zeros, no launch
+        for t in (dx, dw):
+            if t is not None:
+                t.zero_()
+        return dx, dw
+    err = _build.load("moe_gmm_bwd").moe_gmm_bwd_launch(
+        dy.data_ptr(), x.data_ptr(), w.data_ptr(),
+        None if dx is None else dx.data_ptr(),
+        None if dw is None else dw.data_ptr(),
+        None if active is None else active.data_ptr(),
+        0 if active is None else _ACTIVE_BYTES[active.dtype], E, C, D, F,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "moe_gmm_bwd kernel")
+    moe_gmm_bwd_cuda.launches += 1
     return dx, dw
 
 
@@ -140,8 +205,8 @@ moe_gmm_bwd_cuda.launches = 0
 
 
 class MoeGmmFn(torch.autograd.Function):
-    """K7 under autograd: the forward launch, then two launches of the
-    same kernel for dx and dw (`moe_gmm_bwd_cuda`)."""
+    """K7 under autograd: the forward launch, then the backward's
+    (`moe_gmm_bwd_cuda`) for dx and dw."""
 
     @staticmethod
     def forward(ctx, x, w, active):

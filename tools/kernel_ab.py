@@ -5,13 +5,14 @@
                                [--split-max 32,64,128,256]
                                [--only flash_attention,flash_attention_bwd,
                                        decode_attention,
-                                       moe_gmm,edge_rounds,
+                                       moe_gmm,moe_gmm_bwd,edge_rounds,
                                        edge_rounds_bucketed,simplex_project,
                                        ssd_scan,main_path]
 
 Builds the port's `flash_attention` (K4), `flash_attention_bwd` (K4's
 backward), `decode_attention` (K5),
-`moe_gmm` (K7), `edge_rounds` (K1, K2), `simplex_project` (K3) and
+`moe_gmm` (K7), `moe_gmm_bwd` (K7's backward), `edge_rounds` (K1, K2),
+`simplex_project` (K3) and
 `ssd_scan` (K6) from `src/repro_torch/kernels/csrc`, and each variant
 source (a `.cu` with the same C interface, named by the source it
 stands in for; for `ssd_scan` also the serial-chunk kernel's interface,
@@ -37,6 +38,13 @@ in, in the order source, variants, variants reversed, source:
   [64, C, 1024] @ [64, 1024, 2048] at C in {4, 52, 80} in bf16, at C in
   {4, 80} in float32, and the decode's C = 4 with 40 of 64 experts
   active, beside torch.bmm;
+* K7's backward: bfloat16 at `chip_smoke.K7_BWD_SHAPES` (OLMoE's wg/wu
+  and wd products at C = 80, 40 of 64 experts active, and C = 640), in
+  the order source, variants, the route before the backward kernel (two
+  K7 launches on transposed copies, `transposed_bwd`, kept here only),
+  and back, each first
+  held to 1.5x the witness's bfloat16 ulps, beside two torch.bmm calls
+  and the plain gradient, with the bound;
 * K1: sw_1000's cold traffic, taint-pair and longest-path solves of
   `chip_smoke.py` and the seven solves of the sparse main path's first
   iteration (recorded from `core.run`);
@@ -144,7 +152,7 @@ class SerialSSD:
 
 
 KERNELS = ("flash_attention", "flash_attention_bwd", "decode_attention",
-           "moe_gmm", "edge_rounds", "edge_rounds_bucketed",
+           "moe_gmm", "moe_gmm_bwd", "edge_rounds", "edge_rounds_bucketed",
            "simplex_project", "ssd_scan", "main_path")
 PATH_SOURCES = ("edge_rounds", "simplex_project")
 SOURCE_OF = {"edge_rounds_bucketed": "edge_rounds"}
@@ -185,20 +193,24 @@ def main() -> int:
     def randn(*shape, dt):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
 
-    def ab(kernel, call, want, tol, check=None):
-        """{label: [ms, ms]} in the order source, variants, reversed;
-        `check(got)` -> (err, ok) replaces the allclose to `want`."""
-        labels = list(libs[kernel])
+    def ab(kernel, call, want, tol, check=None, others=None):
+        """{label: [ms, ms]} in the order source, variants, `others`
+        ({label: a call in place of `call`}), reversed; `check(got)` ->
+        (err, ok) replaces the allclose to `want`."""
+        others = others or {}
+        labels = list(libs[kernel]) + list(others)
         times = {}
         for label in labels + labels[::-1]:
-            _build._LIBS[kernel] = libs[kernel][label]
-            got = call()
+            run = others.get(label, call)
+            if label in libs[kernel]:
+                _build._LIBS[kernel] = libs[kernel][label]
+            got = run()
             err, ok = (check(got) if check is not None
                        else cs.allclose(torch, got, want, tol))
             if not ok:
                 raise RuntimeError(f"{kernel} {label}: max abs err {err}")
             times.setdefault(label, []).append(
-                cs.device_ms(torch, call, 30))
+                cs.device_ms(torch, run, 30))
         _build._LIBS[kernel] = libs[kernel]["source"]
         return times
 
@@ -210,6 +222,8 @@ def main() -> int:
         bwd_ab(torch, cs, ref, flash_attention_cuda, sdpa, randn, ab)
     if "moe_gmm" in only:
         gmm_ab(torch, cs, ref, ab)
+    if "moe_gmm_bwd" in only:
+        gmm_bwd_ab(torch, cs, ref, ab)
     if "edge_rounds" in only:
         k1_ab(torch, cs, ref, ab)
     if "edge_rounds_bucketed" in only:
@@ -348,6 +362,69 @@ def gmm_ab(torch, cs, ref, ab):
                           "x": [64, C, D], "w": [64, D, F],
                           "active": n_active, "ms": times, "bmm_ms": bmm}),
               flush=True)
+
+
+def transposed_bwd(dy, x, w, active):
+    """K7's backward before it had a kernel of its own, kept here only to
+    time against: two launches of the forward kernel on contiguous
+    transposed copies, dx = K7(dy, wᵀ) and dw = K7(xᵀ, dy)."""
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda
+    return (moe_gmm_cuda(dy, w.transpose(1, 2).contiguous(), active),
+            moe_gmm_cuda(x.transpose(1, 2).contiguous(), dy, active))
+
+
+def gmm_bwd_ab(torch, cs, ref, ab):
+    """K7's backward in bfloat16 at `chip_smoke.K7_BWD_SHAPES`, the source
+    (and variants) against `transposed_bwd`, each held first to 1.5x the
+    witness's bfloat16 ulps (the plain gradient with D reversed in the
+    forward, `chip_smoke.witness_check`'s rule), beside two torch.bmm
+    calls (dy @ wᵀ, xᵀ @ dy) and the plain gradient (CUDA events)."""
+    from repro_torch.kernels.moe_gmm import moe_gmm_bwd_cuda
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    E, dt = 64, torch.bfloat16
+
+    def rev(x, w, active):
+        out = torch.bmm(x.float().flip(-1), w.float().flip(1))
+        return torch.where(active[:, None, None], out, 0.0).to(x.dtype)
+    for C, D, F, n_active in cs.K7_BWD_SHAPES:
+        x = torch.randn((E, C, D), generator=gen, device="cuda").to(dt)
+        w = (torch.randn((E, D, F), generator=gen, device="cuda")
+             * D ** -0.5).to(dt)
+        dy = torch.randn((E, C, F), generator=gen, device="cuda").to(dt)
+        active = torch.zeros(E, dtype=torch.bool, device="cuda")
+        active[torch.randperm(E, generator=gen, device="cuda")
+               [:n_active]] = True
+        x = x * active[:, None, None].to(dt)
+
+        def plain():
+            return cs.grads_of(torch, lambda a, b: ref.moe_gmm_ref(
+                a, b, active), (x, w), dy)[1]
+        want = plain()
+        wit = cs.grads_of(torch, lambda a, b: rev(a, b, active), (x, w),
+                          dy)[1]
+
+        def check(got):
+            ulps = [cs.bf16_ulps(torch, g, p) for g, p in zip(got, want)]
+            lim = [1.5 * max(cs.bf16_ulps(torch, v, p), 1.0)
+                   for v, p in zip(wit, want)]
+            return ulps, all(u <= m for u, m in zip(ulps, lim))
+        times = ab("moe_gmm_bwd", lambda: moe_gmm_bwd_cuda(dy, x, w, active),
+                   None, None, check,
+                   {"two K7 launches": lambda: transposed_bwd(dy, x, w,
+                                                              active)})
+        bmm = cs.device_ms(torch, lambda: (torch.bmm(dy, w.transpose(1, 2)),
+                                           torch.bmm(x.transpose(1, 2), dy)),
+                           30)
+        bound, by = cs.bound_ms((C * F + 2 * (C * D + D * F)) * 2 * n_active,
+                                4.0 * n_active * C * D * F,
+                                cs.PEAK_BF16_FLOPS)
+        print(json.dumps({"kernel": "moe_gmm_bwd", "x": [E, C, D],
+                          "w": [E, D, F], "active": n_active, "ms": times,
+                          "two_bmm_ms": bmm,
+                          "plain_ms": cs.time_ms(torch, plain, 3),
+                          "bound_ms": bound, "bound_by": by}), flush=True)
+        del x, w, dy, want, wit
+    torch.cuda.empty_cache()
 
 
 def path_operands(torch, cs, name):
